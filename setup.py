@@ -34,9 +34,10 @@ setup(
     version="0.3.0",
     description="TPU-native deep learning framework with the mxnet API "
                 "surface (JAX/XLA/Pallas compute, C++ host runtime)",
-    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*"]),
+    packages=find_packages(include=["mxnet_tpu", "mxnet_tpu.*",
+                                    "mxnet_tpu_torch*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     cmdclass={"build_py": BuildWithNative},
-    package_data={"mxnet_tpu": []},
+    package_data={"mxnet_tpu": [], "mxnet_tpu_torch": ["csrc/*.cu"]},
 )

@@ -57,3 +57,9 @@ if _cache is not None:
     from mxnet_tpu.compile.cache import enable_cache
 
     enable_cache(_cache)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels); skips with a reason where there is none")

@@ -1,8 +1,8 @@
-"""GPT weights for the port: made from a seed, or carried over from the
-JAX package.
+"""Weights for the port's models (GPT, ResNet): made from a seed, or
+carried over from the JAX package.
 
-Weights are numpy arrays named as in `GPTDecoder.decode_params()`, the
-same names in both packages. The JAX `_linear` (gpt.py:56) is
+GPT weights are numpy arrays named as in `GPTDecoder.decode_params()`,
+the same names in both packages. The JAX `_linear` (gpt.py:56) is
 ``x @ w.T`` with ``w`` of shape (out, in), which is already
 `torch.nn.functional.linear`'s layout, so nothing is transposed. The LM
 head is tied to ``tok_embed_weight`` and has no tensor of its own.
@@ -15,7 +15,8 @@ import torch
 from .base import MXNetError
 from .context import resolve_device
 
-__all__ = ["gpt_param_shapes", "gpt_params_from_jax", "init_gpt_params"]
+__all__ = ["gpt_param_shapes", "gpt_params_from_jax", "init_gpt_params",
+           "init_resnet_params", "resnet_params_from_jax"]
 
 
 def gpt_param_shapes(cfg):
@@ -80,3 +81,59 @@ def gpt_params_from_jax(np_params, device=None, dtype=None):
                          "got %r" % (dtype,))
     return {name: _to_torch(arr).to(device=dev, dtype=dtype)
             for name, arr in np_params.items()}
+
+
+# ---------------------------------------------------------------------------
+# ResNet
+# ---------------------------------------------------------------------------
+_WEIGHT_SCALE = 0.07    # gluon's default initializer, Uniform(0.07)
+
+
+def init_resnet_params(net, seed=0):
+    """Set every parameter and buffer of `net` (any port block) from a
+    numpy seed, as Gluon's default initializer draws them: weights
+    Uniform(-0.07, 0.07), biases and BatchNorm shifts 0, gains 1, running
+    means 0 and variances 1. Draws follow the Gluon name order, so one
+    seed gives the same weights on every device. Returns {name: array}
+    in the port's layout."""
+    from .gluon.block import collect_params   # gluon imports this module
+    rng = np.random.RandomState(seed)
+    tensors = dict(net.named_parameters())
+    tensors.update(net.named_buffers())
+    out = {}
+    for name, path in collect_params(net).items():
+        shape = tuple(tensors[path].shape)
+        if name.endswith("_weight"):
+            arr = rng.uniform(-_WEIGHT_SCALE, _WEIGHT_SCALE, shape)
+        elif name.endswith(("_gamma", "_running_var")):
+            arr = np.ones(shape)
+        else:
+            arr = np.zeros(shape)
+        out[name] = arr.astype(np.float32)
+    net.load_parameters({k: torch.from_numpy(v) for k, v in out.items()})
+    return out
+
+
+def resnet_params_from_jax(np_params, device=None, layout="NCHW"):
+    """{port name: tensor} on `device` (default CUDA) from the JAX
+    package's ResNet ``{name: array}`` (`collect_params()` values as
+    numpy), for `HybridBlock.load_parameters`. The names lose the JAX
+    net's own prefix (``resnetv10_`` etc.), which the port's top block
+    does not have. NHWC convolution weights (O, kh, kw, I) are permuted
+    to PyTorch's (O, I, kh, kw); Dense weights (out, in) and the vectors
+    carry over as they are."""
+    dev = resolve_device(device)
+    if layout not in ("NCHW", "NHWC"):
+        raise MXNetError("layout must be NCHW or NHWC, got %r" % (layout,))
+    heads = {name.split("_", 1)[0] for name in np_params}
+    if len(heads) != 1:
+        raise MXNetError("resnet_params_from_jax: the names do not share "
+                         "one net prefix: %s" % sorted(heads))
+    cut = len(heads.pop()) + 1
+    out = {}
+    for name, arr in np_params.items():
+        t = _to_torch(arr)
+        if layout == "NHWC" and t.dim() == 4:
+            t = t.permute(0, 3, 1, 2).contiguous()
+        out[name[cut:]] = t.to(dev)
+    return out

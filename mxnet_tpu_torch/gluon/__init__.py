@@ -1,4 +1,6 @@
-"""Gluon (counterpart of mxnet_tpu/gluon/): only the model zoo's GPT so far."""
-from . import model_zoo
+"""Gluon (counterpart of mxnet_tpu/gluon/): the layers, loss and model zoo
+that the ported paths run."""
+from . import loss, model_zoo, nn
+from .block import HybridBlock, collect_params
 
-__all__ = ["model_zoo"]
+__all__ = ["HybridBlock", "collect_params", "loss", "model_zoo", "nn"]

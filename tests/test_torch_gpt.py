@@ -10,6 +10,8 @@ Eager JAX compiles every op anew for each sequence length, so the inputs
 keep every JAX call at T <= 8 (the lengths test_torch_serving.py uses).
 """
 import numpy as np
+import jax
+from jax._src import compilation_cache
 import jax.numpy as jnp
 import pytest
 import torch
@@ -24,6 +26,20 @@ CFG = dict(max_seq_len=MAXLEN, num_layers=2, num_heads=2, embed_dim=16)
 FP32_TOL = 1e-4          # logits / K / V, fp32 on both sides
 BF16_TOL = 0.05          # logits up to ~1.4; 0.024 measured (bf16 rounds
                          # at other places on the two sides)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_compile_cache():
+    """The session's persistent compile cache (tests/conftest.py) installs
+    a read guard that takes one argument fewer than jax 0.9 passes it, so
+    every JAX compile under it raises. This module's JAX compiles run with
+    the cache off; the setting is restored, and the cache reset, after."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")

@@ -12,7 +12,10 @@ import torch
 
 from mxnet_tpu_torch import DeviceUnreachable, resolve_device
 from mxnet_tpu_torch.convert import init_gpt_params
+from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
 from mxnet_tpu_torch.gluon.model_zoo import GPTDecoder
+from mxnet_tpu_torch.gluon.model_zoo.vision import resnet18_v1, resnet50_v1
+from mxnet_tpu_torch.parallel import ShardedTrainer
 from mxnet_tpu_torch.serving import DecodeEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -85,8 +88,8 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
-    """With no card and no device="cpu", the engine and the model raise
-    rather than run on the CPU."""
+    """With no card and no device="cpu", the engine, the models and the
+    trainer raise rather than run on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = dict(vocab_size=16, max_seq_len=8, num_layers=1, num_heads=1,
                embed_dim=8, mlp_ratio=4)
@@ -98,7 +101,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     blk = GPTDecoder(params=params, device="cpu", **cfg)
     with pytest.raises(DeviceUnreachable):
         DecodeEngine(blk)
+    with pytest.raises(DeviceUnreachable):
+        resnet50_v1(layout="NHWC")
+    net = resnet18_v1(classes=4, layout="NHWC", device="cpu")
+    with pytest.raises(DeviceUnreachable):
+        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                       {"learning_rate": 0.1, "momentum": 0.9},
+                       compute_dtype="bfloat16")
     # asked for explicitly, the CPU runs
     eng = DecodeEngine(blk, max_slots=1, device="cpu")
     assert isinstance(eng.prefill(np.array([1, 2]), 0), int)
     assert resolve_device("cpu") == torch.device("cpu")
+    st = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                        {"learning_rate": 0.1}, device="cpu")
+    loss = st.step(torch.zeros(2, 16, 16, 3), torch.tensor([0.0, 1.0]))
+    assert loss.device.type == "cpu" and torch.isfinite(loss)

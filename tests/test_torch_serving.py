@@ -15,6 +15,8 @@ stays at T <= 8, and the JAX references are memoised per prompt.
 import time
 
 import numpy as np
+import jax
+from jax._src import compilation_cache
 import pytest
 
 import mxnet_tpu as mx
@@ -28,6 +30,20 @@ from mxnet_tpu_torch.serving import (ContinuousBatchScheduler, DecodeEngine,
 
 VOCAB, MAXLEN = 96, 32
 CFG = dict(max_seq_len=MAXLEN, num_layers=2, num_heads=2, embed_dim=16)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_compile_cache():
+    """The session's persistent compile cache (tests/conftest.py) installs
+    a read guard that takes one argument fewer than jax 0.9 passes it, so
+    every JAX compile under it raises. This module's JAX compiles run with
+    the cache off; the setting is restored, and the cache reset, after."""
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module")

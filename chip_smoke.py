@@ -9,13 +9,21 @@ Phases; any failure exits non-zero before the final line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
 2. build   — compiles the kernels from mxnet_tpu_torch/csrc with nvcc
-             (sm_90a) and prints the build seconds and ptxas reports.
+             (sm_90a) and prints the build seconds, the ptxas reports and
+             the number of tensor-core (HMMA) instructions in the
+             flash-attention library (and their share of the D = 64
+             kernels' instructions).
 3. kernels — holds each kernel against its plain PyTorch version on the
              card, in fp32 and bf16, at the shapes the GPT and ResNet-50
-             paths give it (the momentum update over ResNet-50's whole
-             parameter list), and times the kernel, the plain version
-             and one PyTorch library call, beside the least time the card
-             could take.
+             paths give it (flash attention at every prefill bucket of
+             the serve phase, on strided views, and once without the
+             causal mask and once at batch 8 to see what holds it back;
+             the momentum update over ResNet-50's whole
+             parameter list), and times the kernel, the plain version and
+             one PyTorch library call (by CUDA events, the kernel and the
+             library call in turns, and by the profiler's device time),
+             beside the least time the card could take for the math the
+             kernel runs.
 4. small   — a narrow GPT on the card (through the kernels) against the
              same GPT on the CPU (plain versions): logits and greedy
              tokens.
@@ -46,6 +54,7 @@ fp32: TF32 is switched off for matmuls and cuDNN.
 import faulthandler
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -57,12 +66,17 @@ import torch
 # published H100 SXM peaks (NVIDIA data sheet), used for the bounds
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12          # CUDA-core fp32, no tensor cores
+TF32_FLOP_S = 494.7e12       # dense TF32 tensor cores
 BF16_FLOP_S = 989e12         # dense bf16 tensor cores
-PEAKS = "HBM 3.35 TB/s, fp32 67 TFLOP/s, bf16 989 TFLOP/s (H100 SXM)"
+PEAKS = ("HBM 3.35 TB/s, fp32 67 TFLOP/s, TF32 494.7 TFLOP/s, bf16 989 "
+         "TFLOP/s (H100 SXM)")
 
 GPT2_SMALL = dict(vocab_size=50257, max_seq_len=1024, num_layers=12,
                   num_heads=12, embed_dim=768, mlp_ratio=4)
 PROMPT_LENS = (17, 64, 130, 255, 300, 511, 700, 990)
+# the prefill lengths the serve phase launches flash attention at (its
+# power-of-two buckets, serving/engine.py), and a ragged one
+FLASH_T = (32, 64, 256, 512, 1000, 1024)
 NEW_TOKENS = 32
 SLOTS = 8
 TOL = {("flash_attention", torch.float32): 1e-4,
@@ -116,6 +130,17 @@ def cuda_ms(fn, iters=30, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def paired_ms(fn, other, iters=30, rounds=5):
+    """cuda_ms of fn() and of other(), taken in turns (fn, other, other,
+    fn, ...) so that the host's noise falls on both; the median round of
+    each."""
+    a, b = [], []
+    for i in range(rounds):
+        for f, out in ((fn, a), (other, b))[::1 if i % 2 == 0 else -1]:
+            out.append(cuda_ms(f, iters))
+    return float(np.median(a)), float(np.median(b))
+
+
 def kernel_of(mangled):
     """'name<args>' of an Itanium-mangled kernel symbol: the
     length-prefixed name in it that ends in _kernel, then its template
@@ -137,6 +162,24 @@ def kernel_of(mangled):
             args = "fp32," + args[1:]
         return "%s<%s>" % (name, args.strip(","))
     return mangled
+
+
+def sass_mix(sass, which):
+    """{kernel: {"instructions": n, "hmma": n}} of the kernels in a
+    cuobjdump --dump-sass listing whose names contain `which`: the
+    static share of tensor-core instructions in each."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = kernel_of(m.group(1))
+            name = name if which in name else None
+            if name:
+                out[name] = {"instructions": 0, "hmma": 0}
+        elif name and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            out[name]["instructions"] += 1
+            out[name]["hmma"] += "HMMA" in line
+    return out
 
 
 def print_ptxas(log):
@@ -232,35 +275,73 @@ def breakdown(dev_us, n, host_ms, top_n=6):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_flash(ops, dev, T, dtype, gen):
+def device_ms(fn, n=10):
+    """Device milliseconds per call of fn(), every kernel and copy it
+    runs (a library call's yardstick)."""
+    return sum(us for us, _ in device_events(fn, n).values()) / n / 1e3
+
+
+def check_flash(ops, dev, T, dtype, gen, strided=False, causal=True,
+                batch=1):
+    """flash_attention at (batch, 12, T, 64) against attention_plain,
+    causal as the serve phase calls it. Two diagnostic rows leave the
+    serve phase's shape: `causal=False` (twice the work on an even grid)
+    and batch 8 (a grid that fills the card several times over).
+    `strided` takes q, k, v as transpose(1, 2) views of a fused
+    (1, T, 3, 12, 64) projection and writes through out= into a
+    (1, T, 12, 64) buffer, as the GPT prefill calls it."""
     import torch.nn.functional as F
-    shape = (1, 12, T, 64)
-    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
-               for _ in range(3))
-    out = ops.flash_attention(q, k, v, causal=True)
+    shape = (batch, 12, T, 64)
+    if strided:
+        qkv = torch.randn((1, T, 3, 12, 64), generator=gen, device=dev) \
+            .to(dtype)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        dst = torch.empty((1, T, 12, 64), device=dev,
+                          dtype=dtype).transpose(1, 2)
+    else:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        dst = None
+    kernel = lambda: ops.flash_attention(  # noqa: E731
+        q, k, v, causal, out=dst)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal)
+    out = kernel()
     torch.cuda.synchronize()
-    ref = ops.attention_plain(q, k, v, causal=True)
+    ref = ops.attention_plain(q, k, v, causal=causal)
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[("flash_attention", dtype)]
     if not np.isfinite(err) or err > tol:
-        fail("flash_attention %s %s: max abs err %g > %g"
-             % (shape, dtype, err, tol))
+        fail("flash_attention %s %s%s%s: max abs err %g > %g"
+             % (shape, dtype, " strided" if strided else "",
+                "" if causal else " full", err, tol))
     elem = q.element_size()
     B, H, _, D = shape
     nbytes = 4 * B * H * T * D * elem
-    flops = 2 * B * H * T * (T + 1) * D   # causal j <= i, q.k and p.v
-    peak = FP32_FLOP_S if dtype == torch.float32 else BF16_FLOP_S
-    return dict(
+    # q.k and p.v over the pairs j <= i when causal, all pairs when not
+    flops = (2 * B * H * T * (T + 1) * D if causal
+             else 4 * B * H * T * T * D)
+    # the math the kernel runs: bf16 tensor cores, or fp32 as 3xTF32
+    if dtype == torch.float32:
+        work, peak = 3 * flops, TF32_FLOP_S
+    else:
+        work, peak = flops, BF16_FLOP_S
+    kernel_ms, library_ms = paired_ms(kernel, library)
+    row = dict(
         name="flash_attention", shape=list(shape), dtype=str(dtype),
-        max_abs_err=err, tol=tol,
-        kernel_ms=cuda_ms(lambda: ops.flash_attention(q, k, v, True)),
-        plain_ms=cuda_ms(lambda: ops.attention_plain(q, k, v, True)),
-        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)),
-        device_ms=kernel_device_ms(
-            lambda: ops.flash_attention(q, k, v, True), "flash_fwd_kernel"),
+        causal=causal, strided=strided, max_abs_err=err, tol=tol,
+        kernel_ms=kernel_ms, plain_ms=cuda_ms(
+            lambda: ops.attention_plain(q, k, v, causal)),
+        library_ms=library_ms,
+        device_ms=kernel_device_ms(kernel, "flash_fwd_kernel"),
+        library_device_ms=device_ms(library),
         bytes=nbytes, flops=flops, peak_flop_s=peak,
-        **bound(nbytes, flops, peak))
+        **bound(nbytes, work, peak))
+    if dtype == torch.float32:
+        # the earlier yardstick: the same operations on the CUDA cores
+        row["bound_cuda_cores_us"] = bound(nbytes, flops,
+                                           FP32_FLOP_S)["bound_us"]
+    return row
 
 
 def check_layer_norm(ops, dev, rows, dtype, gen):
@@ -280,14 +361,18 @@ def check_layer_norm(ops, dev, rows, dtype, gen):
     elem = x.element_size()
     nbytes = (2 * rows * D + 2 * D) * elem
     flops = 8 * rows * D        # sum, centre, square, scale, affine
+    kernel = lambda: ops.layer_norm(x, g, b, 1e-5)  # noqa: E731
+    library = lambda: F.layer_norm(x, (D,), g, b, 1e-5)  # noqa: E731
+    # microsecond calls whose events time is mostly the host's: more
+    # iterations, in turns with the library call
+    kernel_ms, library_ms = paired_ms(kernel, library, iters=200)
     return dict(
         name="layer_norm", shape=[rows, D], dtype=str(dtype),
-        max_abs_err=err, tol=tol,
-        kernel_ms=cuda_ms(lambda: ops.layer_norm(x, g, b, 1e-5)),
+        max_abs_err=err, tol=tol, kernel_ms=kernel_ms,
         plain_ms=cuda_ms(lambda: ops.layer_norm_plain(x, g, b, 1e-5)),
-        library_ms=cuda_ms(lambda: F.layer_norm(x, (D,), g, b, 1e-5)),
-        device_ms=kernel_device_ms(lambda: ops.layer_norm(x, g, b, 1e-5),
-                                   "layer_norm_kernel"),
+        library_ms=library_ms,
+        device_ms=kernel_device_ms(kernel, "layer_norm_kernel"),
+        library_device_ms=device_ms(library),
         bytes=nbytes, flops=flops, peak_flop_s=FP32_FLOP_S,
         **bound(nbytes, flops, FP32_FLOP_S))
 
@@ -703,14 +788,28 @@ def main():
                  "conv1x1_bn_stats"):
         with open("%s/%s.log" % (_build.build_dir(), name)) as f:
             print_ptxas(f.read())
-    emit(phase="build", seconds=build_s, dir=_build.build_dir())
+    # the tensor cores are in use: mma.sync compiles to HMMA
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+         "--dump-sass", os.path.join(_build.build_dir(),
+                                     "flash_attention.so")],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    if not hmma:
+        fail("no HMMA instruction in the flash-attention library")
+    emit(phase="build", seconds=build_s, dir=_build.build_dir(),
+         flash_attention_hmma_instructions=hmma,
+         flash_attention_sass_d64=sass_mix(sass, ",64>"))
 
     # phase 3: kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for T in (16, 128, 1000, 1024):
+        for T in FLASH_T:
             rows.append(check_flash(ops, dev, T, dtype, gen))
+        rows.append(check_flash(ops, dev, 1000, dtype, gen, strided=True))
+        rows.append(check_flash(ops, dev, 1024, dtype, gen, causal=False))
+        rows.append(check_flash(ops, dev, 1024, dtype, gen, batch=8))
         for n in (8, 1024):
             rows.append(check_layer_norm(ops, dev, n, dtype, gen))
         for shape in CONV1X1_SHAPES:
@@ -754,7 +853,8 @@ def main():
     for name in ("flash_attention", "layer_norm"):
         r = next(r for r in rows if r["name"] == name and
                  r["shape"] == main_shape[name] and r["dtype"] ==
-                 str(torch.float32))
+                 str(torch.float32) and not r.get("strided") and
+                 r.get("causal", True))
         kernels.append(dict(
             name=name, route="cuda", source=sources[name][0],
             replaces=sources[name][1], launches=launches[name],
@@ -764,7 +864,9 @@ def main():
             ms=r["kernel_ms"], device_ms=r["device_ms"],
             plain_ms=r["plain_ms"],
             bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
-            library_ms=r["library_ms"], shape=r["shape"], dtype="fp32"))
+            library_ms=r["library_ms"],
+            library_device_ms=r["library_device_ms"], shape=r["shape"],
+            dtype="fp32"))
     # the train step's update: ResNet-50's 193 tensors, fp32, one launch
     r = next(r for r in rows if r["name"] == "fused_sgd_momentum" and
              r["dtype"] == str(torch.float32))

@@ -35,6 +35,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -289,13 +291,17 @@ extern "C" int mxtpu_conv1x1_bn_rows_per_tile(int dtype) {
 
 // x (M, K), w (K, N), y (M, N): contiguous row-major, of one dtype
 // (0 = float32, 1 = bfloat16); part_s, part_ss: float32 scratch of
-// ceil(M / rows_per_tile) x N; mean, var: float32 (N,). Two launches on
-// `stream`; returns the first cudaError_t, or 0.
+// ceil(M / rows_per_tile) x N; mean, var: float32 (N,); device: the
+// tensors' CUDA device. Two launches on `stream`; returns the first
+// cudaError_t, or 0.
 extern "C" int mxtpu_conv1x1_bn_stats(const void* x, const void* w, void* y,
                                       void* part_s, void* part_ss, void* mean,
                                       void* var, int M, int K, int N,
-                                      int dtype, void* stream) {
+                                      int dtype, int device,
+                                      void* stream) {
   if (M < 1 || K < 1 || N < 1) return cudaErrorInvalidValue;
+  mxtpu::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ps = static_cast<float*>(part_s);
   float* pss = static_cast<float*>(part_ss);

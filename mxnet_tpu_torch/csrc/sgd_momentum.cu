@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -101,13 +103,15 @@ sgd_momentum_kernel(const int64_t* __restrict__ table, int ntensors,
 // table: device pointer to ntensors rows of 5 int64 (w, g, m pointers, the
 // element count n, the index of the tensor's first chunk), rows ordered by
 // first chunk; nchunks: the total number of chunks. dtype is w's and g's:
-// 0 = float32, 1 = bfloat16; m is float32. Returns the cudaError_t of the
-// launch.
+// 0 = float32, 1 = bfloat16; m is float32; device: the tensors' CUDA
+// device. Returns the cudaError_t of the launch.
 extern "C" int mxtpu_sgd_momentum(const void* table, int ntensors,
                                   long long nchunks, int dtype, float lr,
                                   float momentum, float wd, float rescale,
-                                  void* stream) {
+                                  int device, void* stream) {
   if (ntensors < 1 || nchunks < 1) return cudaErrorInvalidValue;
+  mxtpu::DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return scope.error();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t cap = 132 * 8;  // 8 blocks of 256 threads per SM
   const int blocks = static_cast<int>(nchunks < cap ? nchunks : cap);

@@ -10,9 +10,10 @@ with two kernels in place of plain ops:
 - every LayerNorm goes through `ops.layer_norm` (2 * layers + 1 per
   forward, prefill or step);
 - the causal attention of a full forward (and so of prefill) goes
-  through `ops.flash_attention`, one launch per layer. The one-token
-  step's attention over the cache stays plain PyTorch, as it stays
-  plain XLA in the JAX package: the kernel has no one-query form.
+  through `ops.flash_attention`, one launch per layer, on strided views
+  of the projections and into a (B, T, H, D) buffer: no copies. The
+  one-token step's attention over the cache stays plain PyTorch, as it
+  stays plain XLA in the JAX package: the kernel has no one-query form.
 
 Cache layout (shared with serving/decode.py and with the JAX package):
 
@@ -81,11 +82,13 @@ def _blocks(cfg, P, tokens, collect_kv=False):
         if collect_kv:
             ks.append(k)
             vs.append(v)
-        # (B, T, H, D) -> the kernel's (B, H, T, D), as the Gluon path
-        # transposes its heads (gpt.py:264-266)
-        ctx = flash_attention(*(t.transpose(1, 2).contiguous()
-                                for t in (q, k, v)), causal=True)
-        ctx = ctx.transpose(1, 2).reshape(B, T, E)
+        # the kernel's (B, H, T, D) as views of the (B, T, H, D) heads, as
+        # the Gluon path transposes them (gpt.py:264-266); the kernel takes
+        # the strides, so nothing is copied, and it writes into ctx
+        ctx = torch.empty(B, T, H, D, dtype=q.dtype, device=q.device)
+        flash_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                        causal=True, out=ctx.transpose(1, 2))
+        ctx = ctx.reshape(B, T, E)
         x = x + _linear(ctx, P["h%d_attn_out_weight" % i],
                         P["h%d_attn_out_bias" % i])
         x = _mlp(P, i, x)

@@ -111,8 +111,10 @@ def dtype_code(t):
 
 
 def stream_of(t):
-    """PyTorch's current stream on `t`'s device, as a pointer for ctypes."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on `t`'s device, as an int that ctypes
+    passes as a pointer (the raw pointer, without building a
+    torch.cuda.Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_launch(rc, what):

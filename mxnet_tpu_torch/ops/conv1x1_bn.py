@@ -45,7 +45,7 @@ def _kernel():
     if _fn is None:
         lib = _build.load("conv1x1_bn_stats")
         fn = lib.mxtpu_conv1x1_bn_stats
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         for code in (0, 1):
@@ -92,10 +92,9 @@ def conv1x1_bn_stats(x, w):
     part = torch.empty((2, tiles, N), dtype=torch.float32, device=x.device)
     mean = torch.empty(N, dtype=torch.float32, device=x.device)
     var = torch.empty(N, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-                part[1].data_ptr(), mean.data_ptr(), var.data_ptr(),
-                M, K, N, code, _build.stream_of(x))
+    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
+            part[1].data_ptr(), mean.data_ptr(), var.data_ptr(), M, K, N,
+            code, x.device.index, _build.stream_of(x))
     _build.check_launch(rc, "conv1x1_bn_stats")
     conv1x1_bn_stats.launches += 1
     return y, mean, var

@@ -40,7 +40,7 @@ def _kernel():
         fn = lib.mxtpu_sgd_momentum
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int] + [ctypes.c_float] * 4 + [
-                           ctypes.c_void_p]
+                           ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mxtpu_sgd_momentum_chunk.restype = ctypes.c_longlong
         _chunk = int(lib.mxtpu_sgd_momentum_chunk())
@@ -112,10 +112,9 @@ def fused_sgd_momentum(ws, gs, ms, lr, momentum=0.9, wd=0.0, rescale=1.0):
     # pinned, so the upload is asynchronous: no host wait on the stream
     table = torch.tensor(rows, dtype=torch.int64).pin_memory().to(
         dev, non_blocking=True)
-    with torch.cuda.device(dev):
-        rc = fn(table.data_ptr(), len(rows) // 5, nchunks,
-                _build.dtype_code(ws[0]), float(lr), float(momentum),
-                float(wd), float(rescale), _build.stream_of(ws[0]))
+    rc = fn(table.data_ptr(), len(rows) // 5, nchunks,
+            _build.dtype_code(ws[0]), float(lr), float(momentum), float(wd),
+            float(rescale), dev.index, _build.stream_of(ws[0]))
     _build.check_launch(rc, "fused_sgd_momentum")
     fused_sgd_momentum.launches += 1
 

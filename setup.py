@@ -39,5 +39,6 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     cmdclass={"build_py": BuildWithNative},
-    package_data={"mxnet_tpu": [], "mxnet_tpu_torch": ["csrc/*.cu"]},
+    package_data={"mxnet_tpu": [], "mxnet_tpu_torch": ["csrc/*.cu",
+                                                         "csrc/*.cuh"]},
 )

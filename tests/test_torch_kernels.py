@@ -62,10 +62,11 @@ def _ln_inputs(shape, seed):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(300, 64), (8, 768)])
+@pytest.mark.parametrize("shape", [(300, 64), (8, 768), (5, 100)])
 def test_layer_norm_matches_pallas(shape, dtype):
     """(300, 64) is not a multiple of the Pallas row block: its padding
-    path runs."""
+    path runs. D = 100 is no multiple of 8: the CUDA kernel takes its
+    scalar path there."""
     x, g, b = _ln_inputs(shape, seed=2)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     want = pallas_layer_norm(jnp.asarray(x, jdt), jnp.asarray(g, jdt),
@@ -104,6 +105,78 @@ def test_flash_attention_ragged_tail_matches_reference(causal):
     got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), causal=causal)
     assert np.abs(got.numpy() - want).max() < ATTN_TOL
+
+
+def test_flash_attention_takes_strided_views():
+    """q, k, v as `transpose(1, 2)` views of a fused (B, T, 3, H, D)
+    projection, written into a (B, T, H, D) buffer through `out=`, as the
+    GPT prefill calls it: the same result as the contiguous call."""
+    r = np.random.RandomState(2)
+    B, T, H, D = 2, 37, 3, 16
+    qkv = torch.from_numpy(r.randn(B, T, 3, H, D).astype(np.float32))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    assert q.stride(-1) == 1 and not q.is_contiguous()
+    want = ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=True)
+    buf = torch.full((B, T, H, D), float("nan"))
+    got = ops.flash_attention(q, k, v, causal=True,
+                              out=buf.transpose(1, 2))
+    assert torch.equal(got, want)
+    assert torch.equal(buf.transpose(1, 2), want)
+
+
+_LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """Round fp32 to TF32 as cvt.rna.tf32.f32 does: 10 mantissa bits, to
+    nearest, ties away from zero (the add carries into the magnitude)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the fp32 kernel runs it: each operand split into TF32 hi
+    and lo parts, lo*hi + hi*lo + hi*hi accumulated in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _attention_in_tf32(q, k, v, mm):
+    """The fp32 kernel's arithmetic in plain torch: q scaled by
+    log2(e) / sqrt(D) before the split, a causal base-2 softmax with
+    masked probabilities exactly 0, both products through `mm`."""
+    T, D = q.shape[-2:]
+    s = mm(q * (_LOG2E / D ** 0.5), k.transpose(-1, -2))
+    mask = torch.ones(T, T, dtype=torch.bool).tril()
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.where(mask, torch.exp2(s - s.amax(-1, keepdim=True)),
+                    torch.zeros_like(s))
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+def test_fp32_kernel_needs_3xtf32_to_meet_its_tolerance():
+    """The numerics case for the fp32 kernel's design, without a card: at
+    the serve phase's largest prefill, (1, 12, 1024, 64) causal, the
+    3xTF32 arithmetic stays within chip_smoke.py's fp32 tolerance (1e-4)
+    of the JAX `_attn_reference`, and one TF32 product per matmul does
+    not."""
+    r = np.random.RandomState(4)
+    q, k, v = (r.randn(1, 12, 1024, 64).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(_attn_reference(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), True))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    err3 = np.abs(_attention_in_tf32(tq, tk, tv, _mm_3xtf32).numpy()
+                  - want).max()
+    err1 = np.abs(_attention_in_tf32(tq, tk, tv, _mm_1xtf32).numpy()
+                  - want).max()
+    assert err3 < 1e-4, err3
+    assert err1 > 1e-4, err1
 
 
 @pytest.mark.parametrize("shape", [(512, 128), (3, 3, 7, 11), (1000,)])
@@ -265,10 +338,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = torch.empty(1, 2, 9, 12, device="meta")      # D not a multiple of 8
     with pytest.raises(MXNetError, match="head dim"):
         ops.flash_attention(q, q, q)
-    q = torch.empty(1, 2, 9, 16, device="meta")
-    with pytest.raises(MXNetError, match="contiguous"):
-        ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
-                            q, q)
+    q = torch.empty(1, 2, 16, 16, device="meta")
+    with pytest.raises(MXNetError, match="unit stride along D"):
+        ops.flash_attention(q.transpose(2, 3), q, q)
     x = torch.empty(4, 32, device="meta")
     with pytest.raises(MXNetError, match="gamma"):
         ops.layer_norm(x, torch.empty(16, device="meta"),
@@ -293,18 +365,32 @@ def test_cuda_kernels_match_plain_versions(dtype):
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     tol = 1e-4 if dtype == torch.float32 else 2e-2
-    for shape in [(2, 2, 40, 16), (1, 12, 1000, 64), (2, 3, 77, 128)]:
+    # the serve phase's bucket T's and a ragged tail at GPT-2-small heads,
+    # and ragged T at other head dims
+    shapes = [(1, 12, T, 64) for T in (32, 64, 256, 512, 1000, 1024)]
+    for shape in shapes + [(2, 2, 40, 16), (2, 3, 77, 128), (1, 2, 33, 8),
+                           (1, 2, 65, 24)]:
         for causal in (False, True):
             q, k, v = (torch.randn(shape, generator=gen, device="cuda")
                        .to(dtype) for _ in range(3))
             got = ops.flash_attention(q, k, v, causal)
             want = ops.attention_plain(q, k, v, causal)
-            assert (got.float() - want.float()).abs().max() < tol
-    x = torch.randn(300, 768, generator=gen, device="cuda").to(dtype)
-    g = torch.randn(768, generator=gen, device="cuda").to(dtype)
-    got = ops.layer_norm(x, g, g)
-    assert (got.float() - ops.layer_norm_plain(x, g, g).float()).abs() \
-        .max() < tol
+            assert (got.float() - want.float()).abs().max() < tol, \
+                (shape, causal)
+    # strided: transpose(1, 2) views of a fused projection, out= a view
+    B, T, H, D = 2, 300, 12, 64
+    qkv = torch.randn(B, T, 3, H, D, generator=gen, device="cuda").to(dtype)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    buf = torch.empty(B, T, H, D, device="cuda", dtype=dtype)
+    ops.flash_attention(q, k, v, True, out=buf.transpose(1, 2))
+    want = ops.attention_plain(q, k, v, True)
+    assert (buf.transpose(1, 2).float() - want.float()).abs().max() < tol
+    for rows, D in [(300, 768), (8, 768), (5, 100), (3, 4096)]:
+        x = torch.randn(rows, D, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(D, generator=gen, device="cuda").to(dtype)
+        got = ops.layer_norm(x, g, g)
+        assert (got.float() - ops.layer_norm_plain(x, g, g).float()).abs() \
+            .max() < tol, (rows, D)
     # 1x1 conv + statistics: y within a bf16 ulp of the plain version's
     # (both accumulate in fp32), the statistics in fp32
     for M, cin, cout in [(300, 64, 256), (6272, 256, 64), (77, 8, 24)]:

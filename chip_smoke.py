@@ -9,21 +9,29 @@ Phases; any failure exits non-zero before the final line:
 
 1. device  — needs CUDA; prints the card's name and power limit.
 2. build   — compiles the kernels from mxnet_tpu_torch/csrc with nvcc
-             (sm_90a) and prints the build seconds, the ptxas reports and
-             the number of tensor-core (HMMA) instructions in the
+             (sm_90a) and prints the build seconds, the ptxas reports, the
+             number of tensor-core (HMMA) instructions in the
              flash-attention library (and their share of the D = 64
-             kernels' instructions).
+             kernels' instructions), and the wgmma (HGMMA) and TMA
+             (UTMALDG, UTMASTG) instructions of the conv1x1 library; no
+             HMMA, HGMMA or UTMALDG fails.
 3. kernels — holds each kernel against its plain PyTorch version on the
              card, in fp32 and bf16, at the shapes the GPT and ResNet-50
              paths give it (flash attention at every prefill bucket of
              the serve phase, on strided views, and once without the
              causal mask and once at batch 8 to see what holds it back;
-             the momentum update over ResNet-50's whole
-             parameter list), and times the kernel, the plain version and
-             one PyTorch library call (by CUDA events, the kernel and the
-             library call in turns, and by the profiler's device time),
-             beside the least time the card could take for the math the
-             kernel runs.
+             the momentum update over ResNet-50's whole parameter list,
+             once through the one-off function and over 3 steps of an
+             update plan with fresh gradients; the 1x1 convolution at
+             each of a ResNet-50 forward's 15 shapes with the weight as
+             the train path passes it, on its unaligned fallback path in
+             both weight layouts, with a check that the profiler saw the
+             path's own kernel, and that two calls give identical bits),
+             and times the kernel, the plain version and one PyTorch
+             library call (by CUDA events, the kernel and the library
+             call in turns, and by the profiler's device time), beside
+             the least time the card could take for the math the kernel
+             runs; for the update, where a call's host time goes.
 4. small   — a narrow GPT on the card (through the kernels) against the
              same GPT on the CPU (plain versions): logits and greedy
              tokens.
@@ -44,7 +52,8 @@ Phases; any failure exits non-zero before the final line:
              through ShardedTrainer.step_many, as bench.py's _train_tput
              sets it up: a warm window, then a timed one. Losses finite and
              falling, no step skipped, and exactly 36 conv1x1_bn_stats and
-             1 fused_sgd_momentum launches per step; img/s, step ms, peak
+             1 fused_sgd_momentum launches per step, every conv1x1 of the
+             profiled step on the wgmma kernel; img/s, step ms, peak
              memory, MFU and a torch.profiler breakdown of one step.
 
 It ends with a JSON line of the kernels, the card's nvidia-smi line, and
@@ -378,29 +387,59 @@ def check_layer_norm(ops, dev, rows, dtype, gen):
 
 
 def check_sgd(ops, dev, shapes, wdtype, gen):
-    """fused_sgd_momentum over every tensor of `shapes` in one launch
-    (w, g in `wdtype`, m fp32) against sgd_momentum_plain per tensor."""
+    """fused_sgd_momentum over every tensor of `shapes` (w, g in `wdtype`,
+    m fp32) against sgd_momentum_plain per tensor: once through the
+    one-off function, then through an SGDMomentumPlan over 3 steps with
+    fresh gradient tensors each step, as ShardedTrainer runs it. The plan
+    call is what is timed, in turns with PyTorch's fused SGD (fp32)."""
     ws = [(torch.randn(s, generator=gen, device=dev) * 0.05).to(wdtype)
           for s in shapes]
-    gs = [(torch.randn(s, generator=gen, device=dev) * 0.01).to(wdtype)
-          for s in shapes]
     ms = [torch.randn(s, generator=gen, device=dev) * 0.01 for s in shapes]
+    tol = TOL[("fused_sgd_momentum", wdtype)]
+
+    def grads():
+        return [(torch.randn(s, generator=gen, device=dev) * 0.01)
+                .to(wdtype) for s in shapes]
+
+    def err_of(want):
+        return max(max((w.float() - a.float()).abs().max().item(),
+                       (m - b).abs().max().item())
+                   for w, m, (a, b) in zip(ws, ms, want))
+
+    errs = []
+    gs = grads()
     want = [ops.sgd_momentum_plain(w, g, m, **SGD_HP)
             for w, g, m in zip(ws, gs, ms)]
     ops.fused_sgd_momentum(ws, gs, ms, **SGD_HP)
     torch.cuda.synchronize()
-    err = max(max((w.float() - a.float()).abs().max().item(),
-                  (m - b).abs().max().item())
-              for w, m, (a, b) in zip(ws, ms, want))
-    tol = TOL[("fused_sgd_momentum", wdtype)]
-    if not np.isfinite(err) or err > tol:
-        fail("fused_sgd_momentum %d tensors, w %s: max abs err %g > %g"
-             % (len(shapes), wdtype, err, tol))
+    errs.append(err_of(want))
+    plan = ops.SGDMomentumPlan(ws, ms)
+    for _ in range(3):
+        gs = grads()
+        want = [ops.sgd_momentum_plain(w, g, m, **SGD_HP)
+                for w, g, m in zip(ws, gs, ms)]
+        plan(gs, **SGD_HP)
+        torch.cuda.synchronize()
+        errs.append(err_of(want))
+    if not np.isfinite(errs).all() or max(errs) > tol:
+        fail("fused_sgd_momentum %d tensors, w %s: max abs err %s (one-off, "
+             "then 3 plan steps) > %g" % (len(shapes), wdtype, errs, tol))
     n = sum(w.numel() for w in ws)
     welem = ws[0].element_size()
     nbytes = n * (3 * welem + 2 * 4)       # w, g, m read; w, m written
     flops = 7 * n
-    library_ms = None
+    kernel = lambda: plan(gs, **SGD_HP)  # noqa: E731
+    row = dict(
+        name="fused_sgd_momentum", shape=[len(shapes), n], dtype=str(wdtype),
+        max_abs_err=max(errs), errs_one_off_then_plan_steps=errs, tol=tol,
+        plain_ms=cuda_ms(lambda: [ops.sgd_momentum_plain(w, g, m, **SGD_HP)
+                                  for w, g, m in zip(ws, gs, ms)]),
+        one_off_ms=cuda_ms(lambda: ops.fused_sgd_momentum(ws, gs, ms,
+                                                          **SGD_HP)),
+        device_ms=kernel_device_ms(kernel, "sgd_momentum_kernel"),
+        library_ms=None, library_device_ms=None,
+        bytes=nbytes, flops=flops, peak_flop_s=FP32_FLOP_S,
+        **bound(nbytes, flops, FP32_FLOP_S))
     if wdtype == torch.float32:
         # the same update by PyTorch's fused SGD (its momentum buffers
         # start from the first step's gradient; the time is what counts)
@@ -410,29 +449,57 @@ def check_sgd(ops, dev, shapes, wdtype, gen):
         opt = torch.optim.SGD(params, lr=SGD_HP["lr"],
                               momentum=SGD_HP["momentum"], dampening=0,
                               weight_decay=SGD_HP["wd"], fused=True)
-        library_ms = cuda_ms(opt.step)
+        row["kernel_ms"], row["library_ms"] = paired_ms(kernel, opt.step)
+        row["library_device_ms"] = device_ms(opt.step)
+        row["host_us"] = sgd_host_breakdown(ops, plan, ws, gs, ms)
+    else:
+        row["kernel_ms"] = cuda_ms(kernel)
+    return row
+
+
+def sgd_host_breakdown(ops, plan, ws, gs, ms, n=50):
+    """Host microseconds of the pieces of one update call, each alone in a
+    loop of n (the clock stops before the closing synchronise, so launches
+    count as their enqueue): what a call that sets everything up anew pays
+    (the one-off function: validate the three lists, build and upload the
+    table, launch) against the plan's per-step call (check the gradients,
+    fill the pointer array, launch)."""
+    from mxnet_tpu_torch.ops import sgd_momentum as mod
+
+    def us(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / n * 1e6
+
+    shapes = [w.shape for w in ws]
     return dict(
-        name="fused_sgd_momentum", shape=[len(shapes), n], dtype=str(wdtype),
-        max_abs_err=err, tol=tol,
-        kernel_ms=cuda_ms(lambda: ops.fused_sgd_momentum(ws, gs, ms,
-                                                         **SGD_HP)),
-        plain_ms=cuda_ms(lambda: [ops.sgd_momentum_plain(w, g, m, **SGD_HP)
-                                  for w, g, m in zip(ws, gs, ms)]),
-        library_ms=library_ms,
-        device_ms=kernel_device_ms(
-            lambda: ops.fused_sgd_momentum(ws, gs, ms, **SGD_HP),
-            "sgd_momentum_kernel"),
-        bytes=nbytes, flops=flops, peak_flop_s=FP32_FLOP_S,
-        **bound(nbytes, flops, FP32_FLOP_S))
+        one_off_call=us(lambda: ops.fused_sgd_momentum(ws, gs, ms,
+                                                       **SGD_HP)),
+        validate_w_m=us(lambda: mod._check_state(ws, ms)),
+        validate_g=us(lambda: mod._check_grads(gs, shapes, ws[0].dtype,
+                                               ws[0].device)),
+        build_and_upload_table=us(lambda: ops.SGDMomentumPlan(ws, ms)),
+        plan_call=us(lambda: plan(gs, **SGD_HP)))
 
 
-def check_conv1x1(ops, dev, M, cin, cout, dtype, gen):
+def check_conv1x1(ops, dev, M, cin, cout, dtype, gen, layout="row",
+                  expect=None):
     """conv1x1_bn_stats against conv1x1_bn_stats_plain at (M, Cin, Cout),
-    and the times of the kernel, the plain version and the library
-    yardstick (torch.matmul + torch.var_mean in x's dtype)."""
+    w row-major (Cin, Cout) (`layout="row"`) or the transpose of a
+    row-major (Cout, Cin) (`"t"`, a conv weight as the train path passes
+    it), and the times of the kernel and the library yardstick
+    (torch.matmul + torch.var_mean in x's dtype) in turns, the plain
+    version, and both device times. `expect`: the kernel the profiler must
+    see (the path the wrapper chose)."""
     x = torch.randn(M, cin, generator=gen, device=dev).to(dtype)
     w = (torch.randn(cin, cout, generator=gen, device=dev)
          / math.sqrt(cin)).to(dtype)
+    if layout == "t":
+        w = w.t().contiguous().t()
     got = ops.conv1x1_bn_stats(x, w)
     torch.cuda.synchronize()
     want = ops.conv1x1_bn_stats_plain(x, w)
@@ -442,25 +509,59 @@ def check_conv1x1(ops, dev, M, cin, cout, dtype, gen):
     if dtype == torch.bfloat16:
         tols[0] *= max(1.0, want[0].float().abs().max().item())
     if not all(np.isfinite(errs)) or any(e > t for e, t in zip(errs, tols)):
-        fail("conv1x1_bn_stats (%d, %d, %d) %s: max abs err y/mean/var %s "
-             "> %s" % (M, cin, cout, dtype, errs, tols))
+        fail("conv1x1_bn_stats (%d, %d, %d) %s w %s: max abs err y/mean/var "
+             "%s > %s" % (M, cin, cout, dtype, layout, errs, tols))
     del got, want
+    kernel = lambda: ops.conv1x1_bn_stats(x, w)  # noqa: E731
+    library = lambda: torch.var_mean(  # noqa: E731
+        torch.matmul(x, w), dim=0, correction=0)
+    seen = [k for k in device_events(kernel, 1) if "conv1x1_" in k]
+    if expect and not any(expect in k for k in seen):
+        fail("conv1x1_bn_stats (%d, %d, %d) %s w %s ran %s, not %s"
+             % (M, cin, cout, dtype, layout, seen, expect))
     elem = x.element_size()
     nbytes = (M * cin + cin * cout + M * cout) * elem + 8 * cout
     flops = 2 * M * cin * cout + 3 * M * cout
     peak = FP32_FLOP_S if dtype == torch.float32 else BF16_FLOP_S
+    kernel_ms, library_ms = paired_ms(kernel, library)
     return dict(
         name="conv1x1_bn_stats", shape=[M, cin, cout], dtype=str(dtype),
+        w_layout=layout, kernels=[k[:60] for k in seen],
         max_abs_err=max(errs), errs_y_mean_var=errs, tols_y_mean_var=tols,
-        kernel_ms=cuda_ms(lambda: ops.conv1x1_bn_stats(x, w)),
+        kernel_ms=kernel_ms, library_ms=library_ms,
         plain_ms=cuda_ms(lambda: ops.conv1x1_bn_stats_plain(x, w)),
-        library_ms=cuda_ms(lambda: torch.var_mean(
-            torch.matmul(x, w), dim=0, correction=0)),
-        device_ms=kernel_device_ms(lambda: ops.conv1x1_bn_stats(x, w),
+        device_ms=kernel_device_ms(kernel,
                                    ("conv1x1_", "bn_stats_finalize_kernel"),
                                    launches=2),
+        library_device_ms=device_ms(library),
         bytes=nbytes, flops=flops, peak_flop_s=peak,
         **bound(nbytes, flops, peak))
+
+
+def conv1x1_paths(ops, dev, gen, card):
+    """The conv1x1 kernel's paths and properties at their own shapes:
+    the unaligned fallback (WMMA) in both weight layouts, a transposed
+    weight at a main shape, and bit-identical results from two calls."""
+    rows = [check_conv1x1(ops, dev, 300, 20, 36, torch.bfloat16, gen,
+                          layout, expect="conv1x1_wmma_kernel")
+            for layout in ("row", "t")]
+    rows.append(check_conv1x1(ops, dev, 100352, 512, 128, torch.bfloat16,
+                              gen, "t", expect="conv1x1_wgmma_kernel"))
+    M, cin, cout = 401408, 64, 256
+    x = torch.randn(M, cin, generator=gen, device=dev).to(torch.bfloat16)
+    w = (torch.randn(cout, cin, generator=gen, device=dev)
+         / math.sqrt(cin)).to(torch.bfloat16).t()
+    a, b = ops.conv1x1_bn_stats(x, w), ops.conv1x1_bn_stats(x, w)
+    torch.cuda.synchronize()
+    same = [torch.equal(u, v) for u, v in zip(a, b)]
+    if not all(same):
+        fail("conv1x1_bn_stats (%d, %d, %d): two calls differ (y, mean, "
+             "var identical: %s)" % (M, cin, cout, same))
+    for r in rows:
+        emit(phase="kernel_path", card=card, **r)
+    emit(phase="conv1x1_bits", card=card, shape=[M, cin, cout],
+         bit_identical_y_mean_var=same)
+    return rows
 
 
 def resnet50_conv1x1_calls(batch=BATCH):
@@ -484,18 +585,22 @@ def resnet50_conv1x1_calls(batch=BATCH):
 
 def conv1x1_per_forward(ops, dev, gen, card):
     """conv1x1_bn_stats at each shape of one ResNet-50 b128 training
-    forward, in bf16, checked and timed shape by shape (each row emitted)
-    and summed over the forward's 36 calls."""
+    forward, in bf16 with the weight as a transposed view, checked and
+    timed shape by shape, in turns with `matmul` + `var_mean` (each row
+    emitted), and summed over the forward's 36 calls."""
     calls = resnet50_conv1x1_calls()
     per = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
-               bound_ms=0.0, t_bytes=0.0, t_ops=0.0, err=0.0,
-               shapes=len(calls))
+               library_device_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
+               err=0.0, shapes=len(calls))
     for (M, cin, cout), n in calls.items():
-        r = check_conv1x1(ops, dev, M, cin, cout, torch.bfloat16, gen)
+        # the weight as the train path passes it: a (Cout, Cin) transposed
+        r = check_conv1x1(ops, dev, M, cin, cout, torch.bfloat16, gen, "t",
+                          expect="conv1x1_wgmma_kernel")
         emit(phase="kernel_main_shape", card=card, calls_per_forward=n, **r)
         for key, src in (("ms", "kernel_ms"), ("device_ms", "device_ms"),
                          ("plain_ms", "plain_ms"),
-                         ("library_ms", "library_ms")):
+                         ("library_ms", "library_ms"),
+                         ("library_device_ms", "library_device_ms")):
             # None (the profiler did not see every launch) stays None
             per[key] = None if per[key] is None or r[src] is None \
                 else per[key] + n * r[src]
@@ -735,9 +840,20 @@ def train(dev, card):
     t = time.perf_counter()
     st.step_many(x, y, n_steps=1).cpu()
     one_step_ms = (time.perf_counter() - t) * 1e3
-    dev_us = profiled(lambda: st.step_many(x, y, n_steps=1), 1)
+    events = device_events(lambda: st.step_many(x, y, n_steps=1), 1)
+    dev_us = {k: us for k, (us, _) in events.items()}
+    # every conv1x1 of the bf16 step must take the wgmma/TMA path: the
+    # wrapper picks the WMMA fallback from the shapes and pointers alone
+    conv_paths = {k[:90]: c for k, (_, c) in events.items()
+                  if "conv1x1_" in k}
+    if any("conv1x1_wmma_kernel" in k or "conv1x1_simt_kernel" in k
+           for k in conv_paths) or (events and not any(
+               "conv1x1_wgmma_kernel" in k for k in conv_paths)):
+        fail("train: the step's conv1x1 launches were %s, want only "
+             "conv1x1_wgmma_kernel" % conv_paths)
     step_profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
     step_profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+    step_profile["conv1x1_kernels"] = conv_paths
     # the stride-2 subsample copies in front of the kernel (6 a forward:
     # the first block's conv0 and downsample in stages 2-4)
     acts = [torch.empty(BATCH, side, side, ch, device=dev,
@@ -788,18 +904,31 @@ def main():
                  "conv1x1_bn_stats"):
         with open("%s/%s.log" % (_build.build_dir(), name)) as f:
             print_ptxas(f.read())
-    # the tensor cores are in use: mma.sync compiles to HMMA
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
-         "--dump-sass", os.path.join(_build.build_dir(),
-                                     "flash_attention.so")],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
+    def sass_of(name):
+        return subprocess.run(
+            [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+             "--dump-sass", os.path.join(_build.build_dir(), name + ".so")],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+
+    def count(sass, op):
+        return sum(op in line for line in sass.splitlines())
+
+    # the tensor cores are in use: mma.sync compiles to HMMA; the conv1x1
+    # main path is wgmma (HGMMA) fed by TMA loads (UTMALDG)
+    sass = sass_of("flash_attention")
+    hmma = count(sass, "HMMA")
     if not hmma:
         fail("no HMMA instruction in the flash-attention library")
+    conv_sass = sass_of("conv1x1_bn_stats")
+    conv_ops = {op: count(conv_sass, op)
+                for op in ("HGMMA", "UTMALDG", "UTMASTG")}
+    if not (conv_ops["HGMMA"] and conv_ops["UTMALDG"]):
+        fail("conv1x1_bn_stats library: %s, want HGMMA and UTMALDG"
+             % conv_ops)
     emit(phase="build", seconds=build_s, dir=_build.build_dir(),
          flash_attention_hmma_instructions=hmma,
-         flash_attention_sass_d64=sass_mix(sass, ",64>"))
+         flash_attention_sass_d64=sass_mix(sass, ",64>"),
+         conv1x1_bn_stats_sass=conv_ops)
 
     # phase 3: kernels
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -824,6 +953,7 @@ def main():
         emit(phase="kernel", card=card, **r)
     # before the training phases: their long profiles leave the profiler
     # dropping records of later large launches
+    conv1x1_paths(ops, dev, gen, card)
     conv_per = conv1x1_per_forward(ops, dev, gen, card)
 
     # phases 4, 5: the model
@@ -877,8 +1007,9 @@ def main():
         launches=launches["fused_sgd_momentum"], max_abs_err=r["max_abs_err"],
         ms=r["kernel_ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
-        library_ms=r["library_ms"], shape=r["shape"], dtype="fp32",
-        per="train step"))
+        library_ms=r["library_ms"],
+        library_device_ms=r["library_device_ms"], shape=r["shape"],
+        dtype="fp32", per="train step"))
     # the train forward's 36 calls in bf16, timed shape by shape, summed
     kernels.append(dict(
         name="conv1x1_bn_stats", route="cuda",
@@ -889,7 +1020,9 @@ def main():
         plain_ms=conv_per["plain_ms"], bound_ms=conv_per["bound_ms"],
         bound_by="bytes" if conv_per["t_bytes"] >= conv_per["t_ops"]
         else "operations",
-        library_ms=conv_per["library_ms"], shape="ResNet-50 b128 forward, "
+        library_ms=conv_per["library_ms"],
+        library_device_ms=conv_per["library_device_ms"],
+        shape="ResNet-50 b128 forward, "
         "36 calls, %d shapes" % conv_per["shapes"], dtype="bf16",
         per="train forward"))
     emit(kernels=kernels)

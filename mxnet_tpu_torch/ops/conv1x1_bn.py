@@ -3,12 +3,16 @@ hand-written CUDA kernel, its plain PyTorch version, and the
 `torch.autograd.Function` that trains through it.
 
 Replaces mxnet_tpu/ops/pallas_kernels.py `conv1x1_bn_stats` (:296, body
-`_conv1x1_bn_kernel` :277). The kernel is ``csrc/conv1x1_bn_stats.cu``;
-its source note says what bounds it on the H100 and how its design
-answers that, and why its statistics are reduced in a second, fixed-order
-pass where the TPU kernel accumulated across grid steps.
+`_conv1x1_bn_kernel` :277). The kernels are in
+``csrc/conv1x1_bn_stats.cu``; its source note says what bounds them on
+the H100, how the design answers that, and why the statistics are reduced
+in a second, fixed-order pass where the TPU kernel accumulated across
+grid steps. bf16 runs a wgmma GEMM fed by TMA where TMA takes the shape
+(Cin and Cout multiples of 8, 16-byte aligned x and w), else a WMMA
+kernel; fp32 runs a CUDA-core kernel.
 
-For x (M, Cin) and w (Cin, Cout) the function is::
+For x (M, Cin), contiguous, and w (Cin, Cout), row-major or the transpose
+of a row-major (Cout, Cin) (a conv weight as it lies), the function is::
 
     y    = x @ w                    fp32 accumulation, y in x's dtype
     mean = mean_rows(y)             fp32, from the fp32 product
@@ -37,19 +41,26 @@ __all__ = ["conv1x1_bn_stats", "conv1x1_bn_stats_plain", "Conv1x1BNStats",
            "conv1x1_bn_nhwc"]
 
 _fn = None
-_rows = {}
+_rows = None
+# mxtpu_conv1x1_bn_partial_rows by (M, N, path, device)
+_partial_rows = {}
+
+# kernel paths of the C entry point
+_SIMT, _WMMA, _WGMMA = 0, 1, 2
 
 
 def _kernel():
-    global _fn
+    global _fn, _rows
     if _fn is None:
         lib = _build.load("conv1x1_bn_stats")
         fn = lib.mxtpu_conv1x1_bn_stats
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+            ctypes.c_longlong] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        for code in (0, 1):
-            _rows[code] = int(lib.mxtpu_conv1x1_bn_rows_per_tile(code))
+        rows = lib.mxtpu_conv1x1_bn_partial_rows
+        rows.argtypes = [ctypes.c_int] * 4
+        rows.restype = ctypes.c_int
+        _rows = rows
         _fn = fn
     return _fn
 
@@ -78,23 +89,46 @@ def conv1x1_bn_stats(x, w):
                          % (x.dtype, x.device, w.dtype, w.device))
     if x.device.type == "cpu":
         return conv1x1_bn_stats_plain(x, w)
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise MXNetError("conv1x1_bn_stats: x and w must be contiguous")
+    if not x.is_contiguous():
+        raise MXNetError("conv1x1_bn_stats: x must be contiguous")
     M, K = x.shape
     N = w.shape[1]
+    if w.is_contiguous():
+        sk, sn = N, 1
+    else:
+        sk, sn = w.stride()
+    if (sk, sn) != (N, 1) and (sk, sn) != (1, K):
+        raise MXNetError("conv1x1_bn_stats: w must be row-major (Cin, Cout) "
+                         "or the transpose of a row-major (Cout, Cin), got "
+                         "strides %s" % (w.stride(),))
     if min(M, K, N) < 1 or max(M, K, N) >= 2 ** 31:
         raise MXNetError("conv1x1_bn_stats: cannot take x %s, w %s"
                          % (tuple(x.shape), tuple(w.shape)))
     fn = _kernel()
-    code = _build.dtype_code(x)
-    tiles = -(-M // _rows[code])
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    part = torch.empty((2, tiles, N), dtype=torch.float32, device=x.device)
-    mean = torch.empty(N, dtype=torch.float32, device=x.device)
-    var = torch.empty(N, dtype=torch.float32, device=x.device)
-    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part[0].data_ptr(),
-            part[1].data_ptr(), mean.data_ptr(), var.data_ptr(), M, K, N,
-            code, x.device.index, _build.stream_of(x))
+    if _build.dtype_code(x) == 0:
+        path = _SIMT
+    elif K % 8 == 0 and N % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        path = _WGMMA       # the main path: TMA takes these
+    else:
+        path = _WMMA
+    device = x.device
+    dev = device.index
+    key = (M, N, path, dev)
+    rows = _partial_rows.get(key)
+    if rows is None:
+        rows = _partial_rows[key] = _rows(M, N, path, dev)
+    if rows < 1:
+        raise MXNetError("conv1x1_bn_stats: no partials layout for M %d, "
+                         "N %d on device %d" % (M, N, dev))
+    y = torch.empty((M, N), dtype=x.dtype, device=device)
+    part = torch.empty((2, rows, N), dtype=torch.float64, device=device)
+    stats = torch.empty((2, N), dtype=torch.float32, device=device)
+    mean, var = stats
+    ptr = stats.data_ptr()
+    rc = fn(x.data_ptr(), w.data_ptr(), y.data_ptr(), part.data_ptr(), ptr,
+            ptr + 4 * N, M, K, N, sk, sn, path, dev,
+            _build.stream_of(x))
     _build.check_launch(rc, "conv1x1_bn_stats")
     conv1x1_bn_stats.launches += 1
     return y, mean, var
@@ -133,7 +167,7 @@ def conv1x1_bn_nhwc(x, weight, bias=None, stride=1):
         x = x[:, ::stride, ::stride, :]
     n, h, w_, cin = x.shape
     cout = weight.shape[0]
-    w2 = weight.reshape(cout, cin).t().contiguous()
+    w2 = weight.reshape(cout, cin).t()   # a view: the kernel reads it as is
     y, mean, var = Conv1x1BNStats.apply(
         x.contiguous().view(n * h * w_, cin), w2)
     y = y.view(n, h, w_, cout)

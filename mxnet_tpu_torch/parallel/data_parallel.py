@@ -7,8 +7,9 @@ the trainer's own copies of the parameters and BatchNorm statistics take
 the module's place), the loss ``mean(outs.float())``, gradients with
 respect to the fp32 master parameters, and the momentum-SGD update, all
 of the step's tensors in ONE launch of the hand-written
-`ops.fused_sgd_momentum` kernel (`sgd_update`, data_parallel.py:56, is
-that kernel's function at ``rescale=1``). The trainer owns its
+`ops.fused_sgd_momentum` kernel through an `ops.SGDMomentumPlan` built
+once in ``__init__`` (`sgd_update`, data_parallel.py:56, is that kernel's
+function at ``rescale=1``). The trainer owns its
 parameters and momenta and updates them in place, where the JAX step
 donates its buffers.
 
@@ -28,7 +29,7 @@ from torch.func import functional_call
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import collect_params
-from ..ops import fused_sgd_momentum
+from ..ops import SGDMomentumPlan
 from ..resilience import numerics as _num
 
 __all__ = ["ShardedTrainer"]
@@ -89,6 +90,9 @@ class ShardedTrainer:
         # momenta exist at momentum 0 too: m' = g there, the same update
         self._mom = {n: torch.zeros_like(v, dtype=torch.float32)
                      for n, v in self._params.items()}
+        # the update of these tensors, set up once: only gradients change
+        self._plan = SGDMomentumPlan(self._params.values(),
+                                     self._mom.values())
 
     # -- the step body ----------------------------------------------------
     def _stage(self, batch_and_labels):
@@ -120,9 +124,7 @@ class ShardedTrainer:
 
     def _update(self, grads):
         hp = self._hp
-        fused_sgd_momentum(list(self._params.values()), grads,
-                           list(self._mom.values()), hp["lr"],
-                           hp["momentum"], hp["wd"], 1.0)
+        self._plan(grads, hp["lr"], hp["momentum"], hp["wd"], 1.0)
 
     def step(self, *batch_and_labels):
         """One train step; returns the scalar loss (a device tensor).

@@ -222,6 +222,93 @@ def test_fused_sgd_momentum_many_tensors_and_bf16_weights():
                   ).max() < SGD_TOL["bfloat16"]
 
 
+def test_sgd_plan_over_three_steps_matches_pallas():
+    """An `SGDMomentumPlan` built once over fixed w and m lists, run for 3
+    steps with new gradient tensors each step (as ShardedTrainer runs it),
+    against the Pallas kernel applied step by step."""
+    rng = np.random.RandomState(5)
+    shapes = [(512, 128), (3, 3, 7, 11), (1000,), (0, 4)]
+    ws = [rng.randn(*s).astype(np.float32) for s in shapes]
+    ms = [rng.randn(*s).astype(np.float32) for s in shapes]
+    tw = [torch.from_numpy(a.copy()) for a in ws]
+    tm = [torch.from_numpy(a.copy()) for a in ms]
+    plan = ops.SGDMomentumPlan(tw, tm)
+    lr, mom, wd, rs = 0.05, 0.9, 1e-4, 0.5
+    for _ in range(3):
+        gs = [rng.randn(*s).astype(np.float32) for s in shapes]
+        plan([torch.from_numpy(g) for g in gs], lr, mom, wd, rs)
+        for i, g in enumerate(gs[:3]):     # (0, 4) has nothing to update
+            ow, om = jax_sgd(jnp.asarray(ws[i]), jnp.asarray(g),
+                             jnp.asarray(ms[i]), lr, mom, wd, rs)
+            ws[i], ms[i] = np.asarray(ow), np.asarray(om)
+    for a, b, w, m in zip(tw[:3], tm[:3], ws, ms):
+        assert np.abs(a.numpy() - w).max() < SGD_TOL["float32"]
+        assert np.abs(b.numpy() - m).max() < SGD_TOL["float32"]
+
+
+def test_sgd_plan_refuses_mismatched_lists():
+    w, m = torch.zeros(4, 3), torch.zeros(4, 3)
+    with pytest.raises(MXNetError, match="equal"):
+        ops.SGDMomentumPlan([w, w], [m])
+    with pytest.raises(MXNetError, match="float32"):
+        ops.SGDMomentumPlan([w], [m.to(torch.bfloat16)])
+    with pytest.raises(MXNetError, match="shapes"):
+        ops.SGDMomentumPlan([w], [m[:2]])
+    with pytest.raises(MXNetError, match="contiguous"):
+        ops.SGDMomentumPlan([w.t()], [m.t()])
+    plan = ops.SGDMomentumPlan([w], [m])
+    with pytest.raises(MXNetError, match="1 tensors, got 2 gradients"):
+        plan([w, w], 0.1)
+    with pytest.raises(MXNetError, match="shapes"):
+        plan([w[:2]], 0.1)
+    with pytest.raises(MXNetError, match="contiguous torch.float32"):
+        plan([w.to(torch.bfloat16)], 0.1)
+    with pytest.raises(MXNetError, match="contiguous torch.float32"):
+        plan([torch.zeros(3, 4).t()], 0.1)
+    assert torch.equal(w, torch.zeros(4, 3))     # nothing was updated
+
+
+def test_sgd_plan_off_the_cpu_never_falls_back(monkeypatch):
+    """A plan over non-CPU tensors loads its kernel when it is built (and
+    uploads its table): here the library cannot be had, and building the
+    plan raises instead of setting up the plain version."""
+    from mxnet_tpu_torch.ops import sgd_momentum
+
+    class NoKernel(Exception):
+        pass
+
+    def no_kernel(name):
+        raise NoKernel(name)
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    monkeypatch.setattr(sgd_momentum, "_fn", None)
+    x = torch.empty(4, 32, device="meta")
+    with pytest.raises(NoKernel):
+        ops.SGDMomentumPlan([x], [x])
+
+
+def test_conv1x1_bn_stats_takes_a_transposed_weight_view():
+    """The weight as a conv weight lies, (Cout, Cin) row-major seen as a
+    (Cin, Cout) view, gives what its contiguous copy gives, and both
+    match the Pallas kernel; on a card the wrapper refuses any other
+    layout before it reaches the kernel."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(300, 16).astype(np.float32)
+    w_oc = (rng.randn(24, 16) * 0.2).astype(np.float32)       # (Cout, Cin)
+    view = torch.from_numpy(w_oc).t()
+    assert not view.is_contiguous() and view.t().is_contiguous()
+    got = ops.conv1x1_bn_stats(torch.from_numpy(x), view)
+    same = ops.conv1x1_bn_stats(torch.from_numpy(x), view.contiguous())
+    want = jax_conv1x1(jnp.asarray(x), jnp.asarray(w_oc.T), block_rows=128)
+    for a, b, c, tol in zip(got, same, want, (CONV_TOL, CONV_TOL, VAR_TOL)):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6)
+        assert np.abs(a.numpy() - np.asarray(c)).max() < tol
+    xm = torch.empty(300, 16, device="meta")
+    strided = torch.empty(16, 48, device="meta")[:, ::2]
+    with pytest.raises(MXNetError, match="row-major"):
+        ops.conv1x1_bn_stats(xm, strided)
+
+
 @pytest.mark.parametrize("M,cin,cout", [(512, 16, 32), (300, 8, 8)])
 def test_conv1x1_bn_stats_matches_pallas(M, cin, cout):
     """M = 300 is no multiple of the Pallas block: its padded-rows path,
@@ -392,23 +479,52 @@ def test_cuda_kernels_match_plain_versions(dtype):
         assert (got.float() - ops.layer_norm_plain(x, g, g).float()).abs() \
             .max() < tol, (rows, D)
     # 1x1 conv + statistics: y within a bf16 ulp of the plain version's
-    # (both accumulate in fp32), the statistics in fp32
-    for M, cin, cout in [(300, 64, 256), (6272, 256, 64), (77, 8, 24)]:
+    # (both accumulate in fp32), the statistics in fp32; a ResNet-50 main
+    # shape, ragged M, Cout past one 256-wide tile, the unaligned fallback
+    # (20, 36: no TMA), each with w row-major and as a (Cout, Cin)
+    # transposed view; two calls give the same bits
+    for M, cin, cout in [(300, 64, 256), (25088, 1024, 256), (6272, 256, 64),
+                         (1000, 128, 520), (77, 8, 24), (300, 20, 36)]:
         x = torch.randn(M, cin, generator=gen, device="cuda").to(dtype)
         w = (torch.randn(cin, cout, generator=gen, device="cuda") * 0.1) \
             .to(dtype)
-        for a, b in zip(ops.conv1x1_bn_stats(x, w),
-                        ops.conv1x1_bn_stats_plain(x, w)):
-            assert (a.float() - b.float()).abs().max() < 2e-2 \
-                * max(1.0, b.float().abs().max().item())
-    # SGD over several tensors, w in `dtype`, m in fp32
+        for w_ in (w, w.t().contiguous().t()):
+            got = ops.conv1x1_bn_stats(x, w_)
+            for a, b in zip(got, ops.conv1x1_bn_stats_plain(x, w_)):
+                assert (a.float() - b.float()).abs().max() < 2e-2 \
+                    * max(1.0, b.float().abs().max().item()), (M, cin, cout)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(got, ops.conv1x1_bn_stats(x, w_)))
+    # SGD over several tensors, w in `dtype`, m in fp32: the one-off
+    # function, then a plan over 3 steps with new gradients each step
     ws = [torch.randn(s, generator=gen, device="cuda").to(dtype)
           for s in (5000, 7, 70000)]
-    gs = [torch.randn_like(w) for w in ws]
     ms = [torch.randn(w.shape, generator=gen, device="cuda") for w in ws]
-    want = [ops.sgd_momentum_plain(w, g, m, 0.1, 0.9, 1e-4)
-            for w, g, m in zip(ws, gs, ms)]
-    ops.fused_sgd_momentum(ws, gs, ms, 0.1, 0.9, 1e-4)
-    for w, m, (ew, em) in zip(ws, ms, want):
-        assert (w.float() - ew.float()).abs().max() < tol
-        assert (m - em).abs().max() < 1e-5
+    plan = ops.SGDMomentumPlan(ws, ms)
+    for step in range(4):
+        gs = [torch.randn_like(w) for w in ws]
+        want = [ops.sgd_momentum_plain(w, g, m, 0.1, 0.9, 1e-4)
+                for w, g, m in zip(ws, gs, ms)]
+        if step == 0:
+            ops.fused_sgd_momentum(ws, gs, ms, 0.1, 0.9, 1e-4)
+        else:
+            plan(gs, 0.1, 0.9, 1e-4)
+        for w, m, (ew, em) in zip(ws, ms, want):
+            assert (w.float() - ew.float()).abs().max() < tol
+            assert (m - em).abs().max() < 1e-5
+    # a plan past one launch's 480 gradient pointers splits in two, each
+    # with its own table and chunk numbering from 0
+    ws = [torch.randn(1 + 37 * i % 9000, generator=gen, device="cuda")
+          .to(dtype) for i in range(500)]
+    ms = [torch.randn(w.shape, generator=gen, device="cuda") for w in ws]
+    plan = ops.SGDMomentumPlan(ws, ms)
+    for _ in range(2):
+        gs = [torch.randn_like(w) for w in ws]
+        want = [ops.sgd_momentum_plain(w, g, m, 0.1, 0.9, 1e-4)
+                for w, g, m in zip(ws, gs, ms)]
+        before = ops.fused_sgd_momentum.launches
+        plan(gs, 0.1, 0.9, 1e-4)
+        assert ops.fused_sgd_momentum.launches == before + 2
+        for i, (w, m, (ew, em)) in enumerate(zip(ws, ms, want)):
+            assert (w.float() - ew.float()).abs().max() < tol, i
+            assert (m - em).abs().max() < 1e-5, i

@@ -204,6 +204,36 @@ def test_nan_gradient_skips_the_step_bit_identically(weights):
     assert guard["anomalies"] == 1 and guard["skipped_steps"] == 0
 
 
+def test_trainer_sets_up_its_update_once(weights, monkeypatch):
+    """The trainer builds one `SGDMomentumPlan` over its parameters and
+    momenta in `__init__`; every update after that, by `step` or
+    `step_many`, is one call of that plan with the step's new gradients."""
+    from mxnet_tpu_torch.parallel import data_parallel
+    built, calls = [], []
+
+    class CountingPlan(data_parallel.SGDMomentumPlan):
+        def __init__(self, ws, ms):
+            built.append(self)
+            super().__init__(ws, ms)
+
+        def __call__(self, gs, *args):
+            calls.append([g.data_ptr() for g in gs])
+            return super().__call__(gs, *args)
+
+    monkeypatch.setattr(data_parallel, "SGDMomentumPlan", CountingPlan)
+    jnet, x, y = weights
+    np_params = {k: np.asarray(v.data()._data)
+                 for k, v in jnet.collect_params().items()}
+    st = _port_trainer(np_params)
+    xs, ys = torch.from_numpy(x), torch.from_numpy(y)
+    st.step(xs, ys)
+    st.step_many(xs, ys, n_steps=2)
+    assert len(built) == 1 and len(calls) == 3
+    assert len(calls[0]) == len(st.params) == len(built[0]._ws)
+    assert {p.data_ptr() for p in st._params.values()} == \
+        {w.data_ptr() for w in built[0]._ws}
+
+
 def test_trainer_refuses_what_the_port_does_not_have(weights, monkeypatch):
     jnet, _, _ = weights
     np_params = {k: np.asarray(v.data()._data)

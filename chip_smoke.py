@@ -55,6 +55,28 @@ Phases; any failure exits non-zero before the final line:
              1 fused_sgd_momentum launches per step, every conv1x1 of the
              profiled step on the wgmma kernel; img/s, step ms, peak
              memory, MFU and a torch.profiler breakdown of one step.
+8. gluon_small — the same narrow NHWC ResNetV1 trains 3 fp32 steps
+             through the Gluon loop (autograd.record, backward,
+             gluon.Trainer.step; SGD momentum 0.9, wd 1e-4, lr 0.1 halved
+             every step by a FactorScheduler) on the card and on the CPU
+             from the same seeded weights: losses, parameters and running
+             statistics must agree.
+9. gluon_train — ResNet-50 v1, NHWC, batch 128 at 224x224,
+             net.cast("bfloat16"), SGD momentum 0.9, wd 1e-4, lr 0.1 with
+             multi_precision and FactorScheduler(step=5, factor=0.5),
+             kvstore "device": MXNet's mixed-precision recipe through the
+             Gluon loop. 2 warm-up steps, then 10 timed, fenced by reading
+             the losses back. Losses finite and falling, no step skipped,
+             36 conv1x1_bn_stats launches a step (all wgmma in the
+             profiled step), fused_sgd_momentum launches equal to the SGD
+             groups the FusedUpdater formed, and a record()-free net(x)
+             after training that leaves the running statistics
+             bit-identical; img/s, step ms and a one-step profile.
+
+The kernel phase also holds the SGD kernel's MXNet form (the update of
+Gluon's SGD) against its plain version over ResNet-50's tensor list, in
+fp32 and in multi-precision bf16 with clipping, over 3 calls with a new
+lr each, beside fused torch.optim.SGD on fp32 tensors of the same shapes.
 
 It ends with a JSON line of the kernels, the card's nvidia-smi line, and
 ``{"ok": true, "device": {...}}``. Float32 matrix products run in full
@@ -95,6 +117,11 @@ TOL = {("flash_attention", torch.float32): 1e-4,
        # w and m after one update; bf16 w: as tests/test_pallas.py:82-98
        ("fused_sgd_momentum", torch.float32): 1e-5,
        ("fused_sgd_momentum", torch.bfloat16): 2e-2,
+       # MXNet's form: each product and sum rounded on its own on both
+       # sides (fp32: the same bits but for the device's last place),
+       # relative to max(1, |w|); the bf16 weight of multi-precision must
+       # be the plain master's bf16 rounding, bit for bit
+       ("sgd_mxnet", torch.float32): 1e-6,
        # y (in units of max|y| for bf16: one bf16 ulp), mean, var; the
        # statistics are fp32 sums in another order on both sides
        ("conv1x1_bn_stats", torch.float32): (1e-4, 1e-5, 1e-4),
@@ -104,6 +131,11 @@ SGD_HP = dict(lr=0.1, momentum=0.9, wd=1e-4)
 CONV1X1_SHAPES = [(401408, 64, 256), (401408, 256, 64), (100352, 512, 128),
                   (6272, 2048, 512), (300, 64, 256)]
 BATCH, IMG, TRAIN_STEPS = 128, 224, 10
+GLUON_WARM = 2
+# the update of Gluon's SGD in the kernel phase (lr changes every call;
+# rescale is 1 / batch, as Trainer.step(128) sets it)
+SGD_MXNET = dict(momentum=0.9, wd=1e-4, rescale=1.0 / 128)
+SGD_MXNET_LRS = (0.1, 0.05, 0.025)
 FLOPS_PER_IMG = 3 * 4.089e9     # fwd + bwd, as bench.py:784 counts them
 
 
@@ -436,7 +468,7 @@ def check_sgd(ops, dev, shapes, wdtype, gen):
                                   for w, g, m in zip(ws, gs, ms)]),
         one_off_ms=cuda_ms(lambda: ops.fused_sgd_momentum(ws, gs, ms,
                                                           **SGD_HP)),
-        device_ms=kernel_device_ms(kernel, "sgd_momentum_kernel"),
+        device_ms=kernel_device_ms(kernel, "MomentumForm"),
         library_ms=None, library_device_ms=None,
         bytes=nbytes, flops=flops, peak_flop_s=FP32_FLOP_S,
         **bound(nbytes, flops, FP32_FLOP_S))
@@ -484,6 +516,80 @@ def sgd_host_breakdown(ops, plan, ws, gs, ms, n=50):
                                                ws[0].device)),
         build_and_upload_table=us(lambda: ops.SGDMomentumPlan(ws, ms)),
         plan_call=us(lambda: plan(gs, **SGD_HP)))
+
+
+def check_sgd_mxnet(ops, dev, shapes, mp, gen):
+    """The kernel's MXNet form over every tensor of `shapes` through an
+    SGDMomentumPlan, against sgd_mxnet_plain per tensor, over 3 calls
+    with a new lr each: fp32 (w, g, v fp32), or multi-precision (bf16
+    weights and gradients, fp32 masters and velocities, clipping set).
+    Timed by events, in turns with fused torch.optim.SGD over fp32
+    tensors of the same shapes (the same 20 bytes an element), and by
+    the profiler."""
+    low = torch.bfloat16 if mp else torch.float32
+    clip = 0.02 if mp else None
+    weights = [(torch.randn(s, generator=gen, device=dev) * 0.05).to(low)
+               for s in shapes]
+    ws = [w.float() for w in weights] if mp else weights
+    vs = [torch.randn(s, generator=gen, device=dev) * 0.01 for s in shapes]
+    plan = ops.SGDMomentumPlan(ws, vs, form="mxnet",
+                               weights=weights if mp else None)
+    tol = TOL[("sgd_mxnet", torch.float32)]
+    errs = []
+    for lr in SGD_MXNET_LRS:
+        gs = [(torch.randn(s, generator=gen, device=dev) * 2.0).to(low)
+              for s in shapes]
+        want = [ops.sgd_mxnet_plain(w, g, v, lr, clip=clip, **SGD_MXNET)
+                for w, g, v in zip(ws, gs, vs)]
+        plan(gs, lr, clip=clip, **SGD_MXNET)
+        torch.cuda.synchronize()
+        err = 0.0
+        for i, (w_new, v_new) in enumerate(want):
+            scale = max(1.0, w_new.abs().max().item())
+            err = max(err, (ws[i] - w_new).abs().max().item() / scale,
+                      (vs[i] - v_new).abs().max().item())
+            if mp and not torch.equal(weights[i], w_new.to(low)):
+                fail("fused_sgd_momentum MXNet form, mp: bf16 weight %d is "
+                     "not the plain master's bf16 rounding (off by %g)"
+                     % (i, (weights[i].float() - w_new.to(low).float())
+                        .abs().max().item()))
+        errs.append(err)
+    if not np.isfinite(errs).all() or max(errs) > tol:
+        fail("fused_sgd_momentum MXNet form %d tensors, %s: max err %s over "
+             "3 calls > %g" % (len(shapes), "mp bf16" if mp else "fp32",
+                               errs, tol))
+    n = sum(w.numel() for w in ws)
+    # read w (or master), g, v; write w (or master), v, and the bf16
+    # weight: 20 bytes an element in both
+    nbytes = 20 * n
+    # rescale, 2 clamp compares, wd's product and sum, momentum's and
+    # lr's products, their difference, the weight's sum
+    flops = 9 * n
+    lr = SGD_MXNET_LRS[-1]
+    kernel = lambda: plan(gs, lr, clip=clip, **SGD_MXNET)  # noqa: E731
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=dev))
+              for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=dev)
+    opt = torch.optim.SGD(params, lr=lr, momentum=SGD_MXNET["momentum"],
+                          dampening=0, weight_decay=SGD_MXNET["wd"],
+                          fused=True)
+    opt.step()           # its momentum buffers exist from here on
+    kernel_ms, library_ms = paired_ms(kernel, opt.step)
+    return dict(
+        name="fused_sgd_momentum", form="mxnet",
+        shape=[len(shapes), n], dtype="mp bf16 (fp32 master)" if mp
+        else str(torch.float32), clip=clip, lrs=list(SGD_MXNET_LRS),
+        max_abs_err=max(errs), errs_per_call=errs, tol=tol,
+        kernel_ms=kernel_ms, library_ms=library_ms,
+        library="fused torch.optim.SGD, fp32 tensors of the same shapes",
+        plain_ms=cuda_ms(lambda: [
+            ops.sgd_mxnet_plain(w, g, v, lr, clip=clip, **SGD_MXNET)
+            for w, g, v in zip(ws, gs, vs)], iters=5),
+        device_ms=kernel_device_ms(kernel, "MXNetForm"),
+        library_device_ms=device_ms(opt.step),
+        bytes=nbytes, flops=flops, peak_flop_s=FP32_FLOP_S,
+        **bound(nbytes, flops, FP32_FLOP_S))
 
 
 def check_conv1x1(ops, dev, M, cin, cout, dtype, gen, layout="row",
@@ -878,6 +984,194 @@ def train(dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8/9: the Gluon loop
+# ---------------------------------------------------------------------------
+def gluon_loop(net, trainer, loss_fn, x, y):
+    """One iteration of the loop an MXNet user writes: record, backward,
+    Trainer.step. Returns the mean loss (a device tensor)."""
+    from mxnet_tpu_torch import autograd
+    with autograd.record():
+        loss = loss_fn(net(x), y)
+    loss.backward()
+    trainer.step(x.shape[0])
+    return loss.detach().float().mean()
+
+
+def running_stats(net):
+    return {k: p.data().clone() for k, p in net.collect_params().items()
+            if "_running_" in k}
+
+
+def gluon_small(dev):
+    """3 fp32 iterations of the Gluon loop on a narrow ResNetV1, on the
+    card and on the CPU from the same seeded weights, lr halved every
+    step: losses, parameters and running statistics agree."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.convert import init_resnet_params
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.randn(8, 32, 32, 3).astype(np.float32))
+    y = torch.from_numpy((np.arange(8) % 10).astype(np.float32))
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        net = ResNetV1(BottleneckV1, [1, 1], [16, 32, 64], classes=10,
+                       layout="NHWC", device=where)
+        init_resnet_params(net, seed=3)
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=1,
+                                                            factor=0.5)})
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        ops.reset_launch_counts()
+        losses = [float(gluon_loop(net, trainer, loss_fn, x.to(where),
+                                   y.to(where))) for _ in range(3)]
+        runs[where.type] = (losses, {k: p.data().detach().cpu() for k, p in
+                                     net.collect_params().items()},
+                            ops.launch_counts(), trainer.learning_rate)
+    (lc, pc, nc, lrc), (lh, ph, nh, lrh) = runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    param_err = max((pc[k] - ph[k]).abs().max().item() for k in ph
+                    if "_running_" not in k)
+    stat_err = max((pc[k] - ph[k]).abs().max().item() for k in ph
+                   if "_running_" in k)
+    # fp32 on both; cuDNN and the CPU convolutions sum in other orders,
+    # as in train_small
+    loss_tol, param_tol, stat_tol = 1e-4, 1e-3, 1e-3
+    if not np.isfinite(lc).all() or loss_err > loss_tol or \
+            param_err > param_tol or stat_err > stat_tol or lrc != lrh:
+        fail("gluon_small: card vs CPU losses %s vs %s, max param err %g, "
+             "running statistics err %g (tol %g, %g, %g)"
+             % (lc, lh, param_err, stat_err, loss_tol, param_tol, stat_tol))
+    if nc["conv1x1_bn_stats"] != 6 * 3 or nc["fused_sgd_momentum"] != 3 \
+            or any(nh.values()):
+        fail("gluon_small: launches card %s, CPU %s; want 18 "
+             "conv1x1_bn_stats and 3 fused_sgd_momentum on the card, none "
+             "on the CPU" % (nc, nh))
+    emit(phase="gluon_small", losses_card=lc, losses_cpu=lh,
+         loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+         running_stats_max_abs_err=stat_err, loss_tol=loss_tol,
+         param_tol=param_tol, stat_tol=stat_tol, final_lr=lrc, launches=nc)
+
+
+def gluon_train(dev, card):
+    """ResNet-50 v1 trained through the Gluon loop with MXNet's
+    mixed-precision recipe. Returns the launch counts of the timed
+    window."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.observability import registry
+    from mxnet_tpu_torch.resilience import numerics
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = resnet50_v1(layout="NHWC", device=dev)
+    net.initialize()            # Gluon's default: Uniform(0.07)
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True,
+        "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=5,
+                                                        factor=0.5)})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    n_params = sum(p.data().numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3).astype("float32")) \
+        .to(dev).to(torch.bfloat16)
+    y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")).to(dev)
+    warm = torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                        for _ in range(GLUON_WARM)]).cpu().numpy()
+    numerics.drain_flags()
+    setup_s = time.perf_counter() - t0
+
+    # the main path, with every launch counter at 0 just before it
+    groups = registry.counter("optimizer.fused.groups")
+    groups0 = groups.get()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                          for _ in range(TRAIN_STEPS)]).cpu().numpy()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    sgd_groups = groups.get() - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    guard = numerics.drain_flags()
+    lrs = trainer.learning_rate
+
+    if not (np.isfinite(warm).all() and np.isfinite(losses).all()):
+        fail("gluon_train: non-finite loss: warm %s, timed %s"
+             % (warm, losses))
+    if guard["skipped_steps"] or guard["anomalies"] or \
+            guard["total"] != TRAIN_STEPS:
+        fail("gluon_train: numerics guard reports %s over %d steps"
+             % (guard, TRAIN_STEPS))
+    if not losses[-1] < warm[0]:
+        fail("gluon_train: loss did not fall: first %g, last %g"
+             % (warm[0], losses[-1]))
+    if launches["conv1x1_bn_stats"] != 36 * TRAIN_STEPS or \
+            launches["fused_sgd_momentum"] != sgd_groups or \
+            sgd_groups != TRAIN_STEPS:
+        fail("gluon_train: launches %s and %d SGD groups over %d steps, "
+             "want 36 conv1x1_bn_stats a step and one fused_sgd_momentum "
+             "launch per SGD group, one group a step"
+             % (launches, sgd_groups, TRAIN_STEPS))
+
+    # where one step's time goes: host wall of one step, device profile
+    t = time.perf_counter()
+    gluon_loop(net, trainer, loss_fn, x, y).cpu()
+    one_step_ms = (time.perf_counter() - t) * 1e3
+    events = device_events(
+        lambda: gluon_loop(net, trainer, loss_fn, x, y).cpu(), 1)
+    dev_us = {k: us for k, (us, _) in events.items()}
+    conv_paths = {k[:90]: c for k, (_, c) in events.items()
+                  if "conv1x1_" in k}
+    if any("conv1x1_wmma_kernel" in k or "conv1x1_simt_kernel" in k
+           for k in conv_paths) or (events and not any(
+               "conv1x1_wgmma_kernel" in k for k in conv_paths)):
+        fail("gluon_train: the step's conv1x1 launches were %s, want only "
+             "conv1x1_wgmma_kernel" % conv_paths)
+    step_profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
+    step_profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+    step_profile["conv1x1_kernels"] = conv_paths
+    step_profile["sgd_kernels"] = {k[:120]: c for k, (_, c) in events.items()
+                                   if "sgd_" in k}
+
+    # predict outside record(): the running statistics stay as they are
+    before = running_stats(net)
+    with torch.no_grad():
+        out = net(x)
+    torch.cuda.synchronize()
+    after = running_stats(net)
+    same = all(torch.equal(before[k], after[k]) for k in before)
+    if not same or not torch.isfinite(out.float()).all() or \
+            tuple(out.shape) != (BATCH, 1000):
+        fail("gluon_train: a record()-free net(x) moved the running "
+             "statistics (%s) or gave %s non-finite logits"
+             % (not same, tuple(out.shape)))
+    step_ms = wall / TRAIN_STEPS * 1e3
+    img_s = BATCH * TRAIN_STEPS / wall
+    emit(phase="gluon_train", card=card, model="ResNet-50 v1, NHWC, seeded "
+         "random weights (net.initialize(): Uniform 0.07)",
+         params=n_params, batch=BATCH, image=IMG,
+         dtype="net.cast(bfloat16), multi_precision (fp32 masters)",
+         steps=TRAIN_STEPS, warm_steps=GLUON_WARM, img_s=img_s,
+         step_ms=step_ms, wall_s=wall,
+         mfu=FLOPS_PER_IMG * img_s / BF16_FLOP_S, peak_mem_gb=peak_gb,
+         setup_s=setup_s, losses_warm=warm.tolist(),
+         losses=losses.tolist(), lr_after=lrs, launches=launches,
+         sgd_groups=sgd_groups, numerics=guard,
+         running_stats_bit_identical_after_predict=same,
+         profile_one_step=step_profile)
+    return launches
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -949,7 +1243,9 @@ def main():
                   resnet50_v1(layout="NHWC", device="cpu").parameters()]
     rows.append(check_sgd(ops, dev, r50_shapes, torch.float32, gen))
     rows.append(check_sgd(ops, dev, r50_shapes[:40], torch.bfloat16, gen))
-    for r in rows:
+    mx_rows = [check_sgd_mxnet(ops, dev, r50_shapes, mp, gen)
+               for mp in (False, True)]
+    for r in rows + mx_rows:
         emit(phase="kernel", card=card, **r)
     # before the training phases: their long profiles leave the profiler
     # dropping records of later large launches
@@ -963,8 +1259,13 @@ def main():
     # phases 6, 7: training
     train_small(dev)
     train_launches = train(dev, card)
-    launches.update(fused_sgd_momentum=train_launches["fused_sgd_momentum"],
-                    conv1x1_bn_stats=train_launches["conv1x1_bn_stats"])
+    # phases 8, 9: the Gluon loop
+    gluon_small(dev)
+    gluon_launches = gluon_train(dev, card)
+    by_path = {name: {"train": train_launches[name],
+                      "gluon_train": gluon_launches[name]}
+               for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
+    launches.update({name: sum(v.values()) for name, v in by_path.items()})
 
     # the main path's own shapes in its serving dtype (fp32)
     main_shape = {"flash_attention": [1, 12, 1024, 64],
@@ -997,19 +1298,35 @@ def main():
             library_ms=r["library_ms"],
             library_device_ms=r["library_device_ms"], shape=r["shape"],
             dtype="fp32"))
-    # the train step's update: ResNet-50's 193 tensors, fp32, one launch
+    # the update: ResNet-50's 193 tensors in one launch, in the m-form
+    # (ShardedTrainer, fp32) and in MXNet's form (gluon.Trainer, mp bf16)
     r = next(r for r in rows if r["name"] == "fused_sgd_momentum" and
              r["dtype"] == str(torch.float32))
+    rm = mx_rows[1]
+
+    def form(row, n, path):
+        return dict(launches=n, path=path, max_abs_err=row["max_abs_err"],
+                    ms=row["kernel_ms"], device_ms=row["device_ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_us"] / 1e3,
+                    bound_by=row["bound_by"], library_ms=row["library_ms"],
+                    library_device_ms=row["library_device_ms"],
+                    shape=row["shape"], dtype=row["dtype"])
     kernels.append(dict(
         name="fused_sgd_momentum", route="cuda",
         source=sources["fused_sgd_momentum"][0],
         replaces=sources["fused_sgd_momentum"][1],
-        launches=launches["fused_sgd_momentum"], max_abs_err=r["max_abs_err"],
+        launches=launches["fused_sgd_momentum"],
+        max_abs_err=max(r["max_abs_err"], rm["max_abs_err"]),
         ms=r["kernel_ms"], device_ms=r["device_ms"], plain_ms=r["plain_ms"],
         bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
         library_ms=r["library_ms"],
         library_device_ms=r["library_device_ms"], shape=r["shape"],
-        dtype="fp32", per="train step"))
+        dtype="fp32", per="train step (m-form; MXNet's form in forms)",
+        forms={"m": form(r, by_path["fused_sgd_momentum"]["train"],
+                         "train (ShardedTrainer)"),
+               "mxnet": form(rm, by_path["fused_sgd_momentum"]
+                             ["gluon_train"], "gluon_train (gluon.Trainer)"),
+               "mxnet_fp32": form(mx_rows[0], 0, "kernel phase only")}))
     # the train forward's 36 calls in bf16, timed shape by shape, summed
     kernels.append(dict(
         name="conv1x1_bn_stats", route="cuda",
@@ -1024,7 +1341,7 @@ def main():
         library_device_ms=conv_per["library_device_ms"],
         shape="ResNet-50 b128 forward, "
         "36 calls, %d shapes" % conv_per["shapes"], dtype="bf16",
-        per="train forward"))
+        per="train forward", launches_by_path=by_path["conv1x1_bn_stats"]))
     emit(kernels=kernels)
     print(card_line(), flush=True)
     faulthandler.cancel_dump_traceback_later()

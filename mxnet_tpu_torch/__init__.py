@@ -12,13 +12,22 @@ Ported so far: slice 1, GPT continuous-batching decode
 `ops.flash_attention` and `ops.layer_norm`); slice 2, ResNet V1 training
 (`gluon.model_zoo.vision.resnet50_v1` and its family, `gluon.nn`,
 `gluon.loss`, `parallel.ShardedTrainer`, with the kernels
-`ops.conv1x1_bn_stats` and `ops.fused_sgd_momentum`).
+`ops.conv1x1_bn_stats` and `ops.fused_sgd_momentum`); slice 3 in part,
+the Gluon imperative training loop (`autograd`, `gluon.Parameter`,
+`initializer`, `lr_scheduler`, `optimizer`, `kvstore`, `gluon.Trainer`),
+whose SGD update is `ops.fused_sgd_momentum` in MXNet's form.
 """
 from .base import MXNetError, __version__, getenv
-from .context import DeviceUnreachable, resolve_device
-from . import (convert, gluon, observability, ops, parallel, resilience,
-               serving)
+from .context import DeviceUnreachable, cpu, gpu, resolve_device
+from . import (autograd, convert, gluon, initializer, kvstore, lr_scheduler,
+               ndarray, observability, ops, optimizer, parallel, random,
+               resilience, serving)
 
-__all__ = ["MXNetError", "DeviceUnreachable", "__version__", "convert",
-           "getenv", "gluon", "observability", "ops", "parallel",
-           "resilience", "resolve_device", "serving"]
+init = initializer
+kv = kvstore
+
+__all__ = ["MXNetError", "DeviceUnreachable", "__version__", "autograd",
+           "convert", "cpu", "getenv", "gluon", "gpu", "init", "initializer",
+           "kv", "kvstore", "lr_scheduler", "ndarray", "observability",
+           "ops", "optimizer", "parallel", "random", "resilience",
+           "resolve_device", "serving"]

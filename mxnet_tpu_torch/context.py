@@ -10,7 +10,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["DeviceUnreachable", "resolve_device"]
+__all__ = ["DeviceUnreachable", "cpu", "gpu", "resolve_device"]
 
 
 class DeviceUnreachable(MXNetError):
@@ -36,3 +36,13 @@ def resolve_device(device=None):
         raise DeviceUnreachable("cuda:%d requested, %d device(s) present"
                                 % (index, torch.cuda.device_count()))
     return torch.device("cuda", index)
+
+
+def cpu(device_id=0):
+    """MXNet's ``mx.cpu()``: the CPU, as a torch device."""
+    return torch.device("cpu")
+
+
+def gpu(device_id=0):
+    """MXNet's ``mx.gpu(i)``: CUDA device `i`, as a torch device."""
+    return torch.device("cuda", device_id)

@@ -15,8 +15,9 @@ import torch
 from .base import MXNetError
 from .context import resolve_device
 
-__all__ = ["gpt_param_shapes", "gpt_params_from_jax", "init_gpt_params",
-           "init_resnet_params", "resnet_params_from_jax"]
+__all__ = ["gluon_params_from_jax", "gpt_param_shapes",
+           "gpt_params_from_jax", "init_gpt_params", "init_resnet_params",
+           "resnet_params_from_jax"]
 
 
 def gpt_param_shapes(cfg):
@@ -114,26 +115,39 @@ def init_resnet_params(net, seed=0):
     return out
 
 
-def resnet_params_from_jax(np_params, device=None, layout="NCHW"):
-    """{port name: tensor} on `device` (default CUDA) from the JAX
-    package's ResNet ``{name: array}`` (`collect_params()` values as
-    numpy), for `HybridBlock.load_parameters`. The names lose the JAX
-    net's own prefix (``resnetv10_`` etc.), which the port's top block
-    does not have. NHWC convolution weights (O, kh, kw, I) are permuted
-    to PyTorch's (O, I, kh, kw); Dense weights (out, in) and the vectors
-    carry over as they are."""
+def gluon_params_from_jax(jax_block_params, device=None, layout="NCHW",
+                          prefix=None):
+    """{port name: tensor} on `device` (default CUDA) from any JAX Gluon
+    block's parameters, ``{name: array}`` (its `collect_params()` values
+    as numpy), for `HybridBlock.load_parameters`. The names lose the JAX
+    block's own prefix, which the port's top block does not have:
+    `prefix`, or else the first ``_``-separated word that every name
+    shares (``resnetv10_``, ``hybridsequential0_``). NHWC convolution
+    weights, the 4-D arrays of an NHWC block, go from (O, kh, kw, I) to
+    PyTorch's (O, I, kh, kw); everything else carries over as it is
+    (bf16 arrays as bf16)."""
     dev = resolve_device(device)
     if layout not in ("NCHW", "NHWC"):
         raise MXNetError("layout must be NCHW or NHWC, got %r" % (layout,))
-    heads = {name.split("_", 1)[0] for name in np_params}
-    if len(heads) != 1:
-        raise MXNetError("resnet_params_from_jax: the names do not share "
-                         "one net prefix: %s" % sorted(heads))
-    cut = len(heads.pop()) + 1
+    if prefix is None:
+        heads = {name.split("_", 1)[0] for name in jax_block_params}
+        if len(heads) != 1:
+            raise MXNetError("gluon_params_from_jax: the names do not share "
+                             "one net prefix: %s" % sorted(heads))
+        prefix = heads.pop() + "_"
     out = {}
-    for name, arr in np_params.items():
+    for name, arr in jax_block_params.items():
+        if not name.startswith(prefix):
+            raise MXNetError("gluon_params_from_jax: %r lacks the prefix "
+                             "%r" % (name, prefix))
         t = _to_torch(arr)
         if layout == "NHWC" and t.dim() == 4:
             t = t.permute(0, 3, 1, 2).contiguous()
-        out[name[cut:]] = t.to(dev)
+        out[name[len(prefix):]] = t.to(dev)
     return out
+
+
+def resnet_params_from_jax(np_params, device=None, layout="NCHW"):
+    """`gluon_params_from_jax` of a JAX ResNet's parameters (the JAX net's
+    prefix, ``resnetv10_`` etc., dropped)."""
+    return gluon_params_from_jax(np_params, device, layout)

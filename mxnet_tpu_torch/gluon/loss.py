@@ -1,9 +1,15 @@
-"""Losses (counterpart of mxnet_tpu/gluon/loss.py): SoftmaxCrossEntropyLoss."""
+"""Losses (counterpart of mxnet_tpu/gluon/loss.py): SoftmaxCrossEntropyLoss.
+
+Under `autograd.record()` a loss returns its per-sample values as an
+`ndarray.NDArray`, so that ``loss.backward()`` seeds ones as MXNet does;
+elsewhere a plain tensor."""
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .. import autograd
+from ..ndarray import NDArray
 from .block import HybridBlock
 
 __all__ = ["SoftmaxCrossEntropyLoss", "SoftmaxCELoss"]
@@ -45,7 +51,9 @@ class SoftmaxCrossEntropyLoss(HybridBlock):
             loss = loss * self._weight
         axes = [i for i in range(loss.dim())
                 if i != self._batch_axis % loss.dim()]
-        return loss.mean(dim=axes) if axes else loss
+        loss = loss.mean(dim=axes) if axes else loss
+        return loss.as_subclass(NDArray) if autograd.is_recording() \
+            else loss
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss

@@ -5,13 +5,13 @@ The blocks and their Gluon names are those of the JAX package, so weights
 carry over by name (`convert.resnet_params_from_jax`). Pass
 ``layout="NHWC"`` for the channels-last net and feed (N, H, W, C) data.
 
-In training mode (``net.train()``, the default) every 1x1 convolution
-that a BatchNorm follows, in an NHWC net, runs through the hand-written
-`conv1x1_bn_stats` kernel, whose epilogue gives the BatchNorm its batch
-statistics (see `nn.HybridSequential`): in ResNet-50 the first and last
-convolution of each of the 16 bottlenecks and the 4 downsample
-convolutions, 36 launches per forward. In eval mode BatchNorm uses its
-running statistics and every convolution is plain `F.conv2d`.
+In training mode (under `autograd.record()`, as in Gluon) every 1x1
+convolution that a BatchNorm follows, in an NHWC net, runs through the
+hand-written `conv1x1_bn_stats` kernel, whose epilogue gives the
+BatchNorm its batch statistics (see `nn.HybridSequential`): in ResNet-50
+the first and last convolution of each of the 16 bottlenecks and the 4
+downsample convolutions, 36 launches per forward. Outside it BatchNorm
+uses its running statistics and every convolution is plain `F.conv2d`.
 
 V2 (pre-activation) is not ported yet.
 """
@@ -109,7 +109,8 @@ class BottleneckV1(HybridBlock):
 class ResNetV1(HybridBlock):
     """resnet.py:173. Input images have 3 channels. Parameters are made on
     `device` (CUDA unless "cpu" is asked for) and are zero until
-    `convert.init_resnet_params` or `load_parameters` sets them."""
+    `initialize`, `convert.init_resnet_params` or `load_parameters` sets
+    them."""
 
     def __init__(self, block, layers, channels, classes=1000,
                  thumbnail=False, layout="NCHW", device=None, prefix=None):

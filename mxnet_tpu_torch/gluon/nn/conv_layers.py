@@ -46,6 +46,16 @@ class Conv2D(HybridBlock):
     def _alias(self):
         return "conv"
 
+    def _param_spec(self, attr, is_buffer):
+        """The weight's fans are those of the JAX layout's shape: an NHWC
+        weight is (O, kh, kw, I) there (conv_layers.py), (O, I, kh, kw)
+        here."""
+        spec = super()._param_spec(attr, is_buffer)
+        if attr == "weight" and self._kwargs["layout"] == "NHWC":
+            o, i, kh, kw = self.weight.shape
+            spec["fan_shape"] = (o, kh, kw, i)
+        return spec
+
     def forward(self, x):
         return _ops.convolution(x, self.weight, self.bias, **self._kwargs)
 

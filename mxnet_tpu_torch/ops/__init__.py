@@ -12,13 +12,13 @@ from .conv1x1_bn import (Conv1x1BNStats, conv1x1_bn_nhwc, conv1x1_bn_stats,
 from .flash_attention import attention_plain, flash_attention
 from .layer_norm import layer_norm, layer_norm_plain
 from .sgd_momentum import (SGDMomentumPlan, fused_sgd_momentum,
-                           sgd_momentum_plain)
+                           sgd_momentum_plain, sgd_mxnet_plain)
 
 __all__ = ["Conv1x1BNStats", "SGDMomentumPlan", "attention_plain",
            "conv1x1_bn_nhwc", "conv1x1_bn_stats", "conv1x1_bn_stats_plain",
            "flash_attention", "fused_sgd_momentum", "layer_norm",
            "layer_norm_plain", "launch_counts", "nn", "reset_launch_counts",
-           "sgd_momentum_plain"]
+           "sgd_momentum_plain", "sgd_mxnet_plain"]
 
 KERNELS = (flash_attention, layer_norm, fused_sgd_momentum,
            conv1x1_bn_stats)

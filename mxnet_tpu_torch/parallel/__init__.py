@@ -1,5 +1,6 @@
 """Training (counterpart of mxnet_tpu/parallel/): `ShardedTrainer` on one
-device."""
+device, and the `FusedUpdater` behind `gluon.Trainer`."""
 from .data_parallel import ShardedTrainer
+from .fused_update import FusedUpdater
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["FusedUpdater", "ShardedTrainer"]

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 from torch.func import functional_call
 
+from .. import autograd
 from ..base import MXNetError
 from ..context import resolve_device
 from ..gluon.block import collect_params
@@ -109,8 +110,7 @@ class ShardedTrainer:
         cd = self._cd
         if cd is not None:
             data = [x.to(cd) if x.is_floating_point() else x for x in data]
-        self._net.train()
-        with torch.enable_grad():
+        with torch.enable_grad(), autograd.train_mode():
             leaves = [p.detach().requires_grad_(True)
                       for p in self._params.values()]
             state = {self._paths[n]: (v.to(cd) if cd is not None and

@@ -4,8 +4,10 @@ SDC replay are not ported yet).
 
 `ShardedTrainer.step` skips an update whose gradients are not all finite,
 leaving parameters, momentum and BatchNorm statistics as they were, and
-records its verdict here as where="step". `step_many` runs its steps
-unguarded and records one verdict for the window (where="window"):
+records its verdict here as where="step"; `parallel.FusedUpdater` (under
+`gluon.Trainer`) skips each such group of its update the same way and
+records one verdict per update as where="update". `step_many` runs its
+steps unguarded and records one verdict for the window (where="window"):
 detection only, since a bad window's weights were written. A verdict is a
 bool or a 0-d device tensor, appended without a host read;
 `drain_flags` resolves them all at once.
@@ -47,7 +49,7 @@ def _count(flag, where, acc):
     if not ok:
         acc["bad"] += 1
         acc["anomalies"] += 1
-        if where == "step":
+        if where in ("step", "update"):
             acc["skipped_steps"] += 1
 
 
@@ -62,9 +64,10 @@ def record_flag(flag, where="step"):
 
 def drain_flags():
     """Resolve and clear every pending verdict. Returns ``bad`` /
-    ``total`` (verdicts), ``skipped_steps`` (bad where="step": updates
-    skipped with state preserved) and ``anomalies`` (every bad verdict,
-    windows included), and counts the last two in the registry."""
+    ``total`` (verdicts), ``skipped_steps`` (bad where="step" or
+    "update": updates skipped with state preserved) and ``anomalies``
+    (every bad verdict, windows included), and counts the last two in the
+    registry."""
     with _lock:
         pending, _flags[:] = list(_flags), []
         acc = dict(_carry)

@@ -116,3 +116,31 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                         {"learning_rate": 0.1}, device="cpu")
     loss = st.step(torch.zeros(2, 16, 16, 3), torch.tensor([0.0, 1.0]))
     assert loss.device.type == "cpu" and torch.isfinite(loss)
+
+
+def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
+    """The Gluon loop's entry points: a layer or net made, or a parameter
+    moved, without device="cpu" raises when there is no card; asked for
+    the CPU, record -> backward -> Trainer.step runs there. The
+    distributed kvstore is not ported and says so."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import MXNetError, autograd, gluon
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(DeviceUnreachable):
+        gluon.nn.Dense(2, in_units=3)
+    with pytest.raises(DeviceUnreachable):
+        gluon.nn.BatchNorm(in_channels=3)
+    net = resnet18_v1(classes=4, layout="NHWC", device="cpu")
+    with pytest.raises(DeviceUnreachable):
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu())
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    with autograd.record():
+        loss = SoftmaxCrossEntropyLoss()(net(torch.randn(2, 16, 16, 3)),
+                                         torch.tensor([0.0, 1.0]))
+    loss.backward()
+    trainer.step(2)
+    assert loss.device.type == "cpu" and np.isfinite(loss.asnumpy()).all()
+    with pytest.raises(MXNetError, match="not ported"):
+        mx.kvstore.create("dist_sync")

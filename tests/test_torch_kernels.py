@@ -287,6 +287,25 @@ def test_sgd_plan_off_the_cpu_never_falls_back(monkeypatch):
         ops.SGDMomentumPlan([x], [x])
 
 
+def test_sgd_mxnet_plan_off_the_cpu_never_falls_back(monkeypatch):
+    """MXNet's form too: a plan over non-CPU tensors loads the kernel when
+    it is built, and raises when the library cannot be had."""
+    from mxnet_tpu_torch.ops import sgd_momentum
+
+    class NoKernel(Exception):
+        pass
+
+    def no_kernel(name):
+        raise NoKernel(name)
+
+    monkeypatch.setattr(_build, "load", no_kernel)
+    monkeypatch.setattr(sgd_momentum, "_fn", None)
+    w = torch.empty(4, 32, device="meta")
+    low = torch.empty(4, 32, device="meta", dtype=torch.bfloat16)
+    with pytest.raises(NoKernel):
+        ops.SGDMomentumPlan([w], [w], form="mxnet", weights=[low])
+
+
 def test_conv1x1_bn_stats_takes_a_transposed_weight_view():
     """The weight as a conv weight lies, (Cout, Cin) row-major seen as a
     (Cin, Cout) view, gives what its contiguous copy gives, and both
@@ -528,3 +547,51 @@ def test_cuda_kernels_match_plain_versions(dtype):
         for i, (w, m, (ew, em)) in enumerate(zip(ws, ms, want)):
             assert (w.float() - ew.float()).abs().max() < tol, i
             assert (m - em).abs().max() < 1e-5, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fp32", "bf16", "bf16_multi_precision"])
+def test_cuda_sgd_mxnet_form_matches_plain_version(case):
+    """MXNet's form through a plan, 3 calls with a new lr each, against
+    `sgd_mxnet_plain` per tensor: with momentum and clipping, at momentum
+    0 (no velocity), and vetoed by a false `ok` (nothing written).
+    fp32: the kernel rounds each product and sum on its own, as the
+    plain version's separate operations do (1e-6); bf16 weights: one
+    bf16 ulp."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    mp = case == "bf16_multi_precision"
+    low = torch.float32 if case == "fp32" else torch.bfloat16
+    shapes = [(5000,), (7,), (64, 3, 3, 3), (70001,)]
+    tol = 1e-6 if case == "fp32" else 2 ** -7
+    for momentum, clip in ((0.9, 0.02), (0.0, None)):
+        weights = [torch.randn(s, generator=gen, device="cuda").to(low)
+                   for s in shapes]
+        ws = [w.float() for w in weights] if mp else weights
+        vs = [torch.randn(w.shape, generator=gen, device="cuda")
+              .to(w.dtype) * 0.01 for w in ws] if momentum else None
+        plan = ops.SGDMomentumPlan(ws, vs, form="mxnet",
+                                   weights=weights if mp else None)
+        for lr in (0.1, 0.05, 0.2):
+            gs = [(torch.randn(w.shape, generator=gen, device="cuda")
+                   * 0.05).to(low) for w in ws]
+            want = [ops.sgd_mxnet_plain(w, g, v, lr, momentum, 1e-4, 0.5,
+                                        clip)
+                    for w, g, v in zip(ws, gs, vs or [None] * len(ws))]
+            before = ops.fused_sgd_momentum.launches
+            plan(gs, lr, momentum, 1e-4, 0.5, clip)
+            assert ops.fused_sgd_momentum.launches == before + 1
+            for i, (w_new, v_new) in enumerate(want):
+                assert (ws[i].float() - w_new.float()).abs().max() <= \
+                    tol * max(1.0, w_new.float().abs().max().item()), i
+                if mp:
+                    assert torch.equal(weights[i], w_new.to(low)), i
+                if momentum:
+                    assert (vs[i].float() - v_new.float()).abs().max() <= \
+                        tol, i
+        kept = [w.clone() for w in ws + weights]
+        plan(gs, 0.1, momentum, 1e-4, 0.5, clip,
+             ok=torch.zeros((), dtype=torch.bool, device="cuda"))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(ws + weights, kept))

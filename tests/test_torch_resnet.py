@@ -4,10 +4,12 @@ A small JAX `ResNetV1(BottleneckV1, [1, 1], [16, 32, 64], classes=10)` is
 initialised from a seed, its weights (and random running statistics)
 carried over with `convert.resnet_params_from_jax`, and the same numpy
 batch goes through both: logits in predict mode, and in training mode the
-logits and the BatchNorm moving statistics after one forward. In training
-mode the port's NHWC net runs every 1x1 convolution + BatchNorm through
-`ops.conv1x1_bn_stats` (its plain version on the CPU). A `resnet18_v1`
-covers BasicBlockV1 and its downsample.
+logits and the BatchNorm moving statistics after one forward. On both
+sides the mode follows autograd: training under `autograd.record()`,
+predict outside it. In training mode the port's NHWC net runs every 1x1
+convolution + BatchNorm through `ops.conv1x1_bn_stats` (its plain
+version on the CPU). A `resnet18_v1` covers BasicBlockV1 and its
+downsample.
 """
 import numpy as np
 import jax
@@ -17,7 +19,7 @@ import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
-from mxnet_tpu_torch import MXNetError
+from mxnet_tpu_torch import MXNetError, autograd
 from mxnet_tpu_torch.convert import init_resnet_params, resnet_params_from_jax
 from mxnet_tpu_torch.gluon import collect_params
 from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -121,7 +123,6 @@ def test_predict_logits_match_jax(small):
     layout, jnet, tnet, _ = small
     x = _batch(layout)
     want = jnet(mx.nd.array(x)).asnumpy()
-    tnet.eval()
     with torch.no_grad():
         got = tnet(torch.from_numpy(x)).numpy()
     assert got.shape == (4, 10) and np.isfinite(got).all()
@@ -129,8 +130,8 @@ def test_predict_logits_match_jax(small):
 
 
 def test_train_logits_and_moving_stats_match_jax(small):
-    """One training-mode forward on each side (mx.autograd.record in the
-    JAX package); the port's BatchNorm moves its running statistics in
+    """One training-mode forward on each side (autograd.record in both
+    packages); the port's BatchNorm moves its running statistics in
     place, as the JAX net's aux write does. Runs after the tests that
     read the module's nets unchanged."""
     layout, jnet, _, np_params = small
@@ -139,9 +140,8 @@ def test_train_logits_and_moving_stats_match_jax(small):
     x = _batch(layout, seed=2)
     with mx.autograd.record():
         want = jnet(mx.nd.array(x)).asnumpy()
-    tnet.train()
-    with torch.no_grad():
-        got = tnet(torch.from_numpy(x)).numpy()
+    with autograd.record():
+        got = tnet(torch.from_numpy(x)).detach().numpy()
     assert np.abs(got - want).max() < LOGIT_TOL
     names = collect_params(tnet)
     bufs = dict(tnet.named_buffers())
@@ -176,12 +176,11 @@ def test_resnet18_v1_nhwc_logits_match_jax(resnet18, mode):
     if mode == "train":
         with mx.autograd.record():
             want = jnet(mx.nd.array(x)).asnumpy()
-        tnet.train()
+        with autograd.record():
+            got = tnet(torch.from_numpy(x)).detach().numpy()
     else:
         want = jnet(mx.nd.array(x)).asnumpy()
-        tnet.eval()
-    with torch.no_grad():
-        got = tnet(torch.from_numpy(x)).numpy()
+        got = tnet(torch.from_numpy(x)).detach().numpy()
     assert np.abs(got - want).max() < LOGIT_TOL
 
 

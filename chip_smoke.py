@@ -73,6 +73,32 @@ Phases; any failure exits non-zero before the final line:
              after training that leaves the running statistics
              bit-identical; img/s, step ms and a one-step profile.
 
+10. nd_sweep — every operator of the registry (mx.nd) on the card
+             against the same operator on the CPU, from the case table of
+             tools/torch_op_cases.py: outputs, aux write-backs and the
+             gradients of one record() -> backward; random operators by
+             the mean and variance of their draws. Counts the operators
+             run and passed.
+11. nd_flash — nd.contrib.flash_attention under record() with a backward
+             at (8, 12, 1024, 64) causal, fp32 and bf16: one kernel launch
+             a call, the output and the gradients against attention_plain,
+             and the times of the forward and of forward + backward
+             beside the plain version and SDPA.
+12. nd_save — arrays of five dtypes written by nd.save from the card and
+             read by nd.load on the CPU, bit for bit.
+13. nd_gpt — GPT-2-small trained through mx.nd: GPTDecoder.hybrid_forward
+             on registry operators under record(), a cross entropy of
+             nd.log_softmax and nd.pick, backward, and nd.sgd_mom_update
+             of each of the 148 weights in place; batch 8 x 1024, fp32,
+             seeded weights and tokens. A narrow twin (2 layers, width
+             64) first runs 3 steps on the card and the CPU (losses and
+             weights within 1e-4). Exactly 25 layer_norm and 148
+             fused_sgd_momentum launches a step and no flash_attention,
+             finite losses; step ms, host against device ms, tokens/s,
+             peak memory, device ms by kernel class, the host cost of one
+             invoke, the kernels at these call sites, and backward's host
+             ms with a ResNet-50's parameters alive as well.
+
 The kernel phase also holds the SGD kernel's MXNet form (the update of
 Gluon's SGD) against its plain version over ResNet-50's tensor list, in
 fp32 and in multi-precision bf16 with clipping, over 3 calls with a new
@@ -243,21 +269,55 @@ def percentile(values, q):
     return float(np.percentile(np.asarray(values, np.float64), q))
 
 
+def warm_profile(fn, n, activities):
+    """torch.profiler over n runs of fn(), after a warm-up step in which
+    the tracer is on, sees one small launch and keeps nothing: without
+    it the tracer can miss the first launch of its window."""
+    from torch.profiler import profile, schedule
+    torch.cuda.synchronize()
+    with profile(activities=activities, schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def on_device(e):
+    """A profiler event of device time that a kernel or copy took (not
+    the schedule's ProfilerStep range, which spans its whole step)."""
+    from torch.autograd import DeviceType
+    return (e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep"))
+
+
 def device_events(fn, n):
     """Run fn() n times under torch.profiler (device activity only);
     returns {kernel or copy name: (device microseconds, launches)} over
     the n runs. Empty when the profiler sees no device activity."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity
+    prof = warm_profile(fn, n, [ProfilerActivity.CUDA])
     return {e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0}
+            for e in prof.key_averages() if on_device(e)}
+
+
+def kernels_seen(fn, part, expect, n=3, tries=10):
+    """Names of the kernels containing `part` that the profiler saw over
+    n calls of fn(). The profiler can drop the record of a launch, so
+    while no name contains `expect` it profiles again, up to `tries`
+    times, and returns every name it saw."""
+    seen = set()
+    for _ in range(tries):
+        seen |= {k for k in device_events(fn, n) if part in k}
+        if any(expect in k for k in seen):
+            break
+        print("chip_smoke: the profiler saw %s of %d calls, no %s"
+              % (sorted(seen), n, expect), file=sys.stderr, flush=True)
+    return sorted(seen)
 
 
 def profiled(fn, n):
@@ -293,12 +353,12 @@ _KINDS = (("conv1x1_bn_stats", ("conv1x1_", "bn_stats_finalize")),
           ("elementwise", ("elementwise", "pool", "Memset")))
 
 
-def by_kind(dev_us, n):
+def by_kind(dev_us, n, kinds=_KINDS):
     """Device milliseconds per call of the profiled items, summed into
-    the classes of _KINDS (first match wins) and "other"."""
+    the classes of `kinds` (first match wins) and "other"."""
     out = {}
     for name, us in dev_us.items():
-        kind = next((k for k, keys in _KINDS
+        kind = next((k for k, keys in kinds
                      if any(key in name for key in keys)), "other")
         out[kind] = out.get(kind, 0.0) + us / n / 1e3
     return out
@@ -621,7 +681,7 @@ def check_conv1x1(ops, dev, M, cin, cout, dtype, gen, layout="row",
     kernel = lambda: ops.conv1x1_bn_stats(x, w)  # noqa: E731
     library = lambda: torch.var_mean(  # noqa: E731
         torch.matmul(x, w), dim=0, correction=0)
-    seen = [k for k in device_events(kernel, 1) if "conv1x1_" in k]
+    seen = kernels_seen(kernel, "conv1x1_", expect) if expect else []
     if expect and not any(expect in k for k in seen):
         fail("conv1x1_bn_stats (%d, %d, %d) %s w %s ran %s, not %s"
              % (M, cin, cout, dtype, layout, seen, expect))
@@ -995,7 +1055,7 @@ def gluon_loop(net, trainer, loss_fn, x, y):
         loss = loss_fn(net(x), y)
     loss.backward()
     trainer.step(x.shape[0])
-    return loss.detach().float().mean()
+    return loss.astorch().detach().float().mean()
 
 
 def running_stats(net):
@@ -1143,18 +1203,18 @@ def gluon_train(dev, card):
     step_profile["sgd_kernels"] = {k[:120]: c for k, (_, c) in events.items()
                                    if "sgd_" in k}
 
-    # predict outside record(): the running statistics stay as they are
+    # predict outside record(): the running statistics stay as they are,
+    # and no graph is built (torch's own grad mode is on here)
     before = running_stats(net)
-    with torch.no_grad():
-        out = net(x)
+    out = net(x)
     torch.cuda.synchronize()
     after = running_stats(net)
     same = all(torch.equal(before[k], after[k]) for k in before)
     if not same or not torch.isfinite(out.float()).all() or \
-            tuple(out.shape) != (BATCH, 1000):
+            tuple(out.shape) != (BATCH, 1000) or out.requires_grad:
         fail("gluon_train: a record()-free net(x) moved the running "
-             "statistics (%s) or gave %s non-finite logits"
-             % (not same, tuple(out.shape)))
+             "statistics (%s), built a graph (%s) or gave %s non-finite "
+             "logits" % (not same, out.requires_grad, tuple(out.shape)))
     step_ms = wall / TRAIN_STEPS * 1e3
     img_s = BATCH * TRAIN_STEPS / wall
     emit(phase="gluon_train", card=card, model="ResNet-50 v1, NHWC, seeded "
@@ -1170,6 +1230,522 @@ def gluon_train(dev, card):
          running_stats_bit_identical_after_predict=same,
          profile_one_step=step_profile)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 10-13: the eager array layer (mx.nd)
+# ---------------------------------------------------------------------------
+ND_GPT = dict(batch=8, T=1024, warm=1, steps=3)
+ND_SGD = dict(lr=0.01, momentum=0.9, wd=1e-4)
+# card against CPU in the sweep: CUDA's math library and the CPU's differ
+# in the last places, so the elementwise class takes 1e-5 here; a
+# kernel-backed op takes its kernel's stated tolerance
+ND_CARD_TOL = {"elem": 1e-5, "reduce": 1e-5, "gemm": 1e-4}
+ND_KERNEL_TOL = {"LayerNorm": 1e-4, "_contrib_flash_attention": 1e-4}
+# multi-precision SGD runs bf16 weights on the card (the kernel's low
+# dtype): its output is one bf16 rounding of equal fp32 masters
+ND_MP = ("mp_sgd_update", "mp_sgd_mom_update")
+ND_KINDS = (("layer_norm kernel", ("layer_norm_kernel",)),
+            ("fused_sgd_momentum kernel", ("sgd_momentum_kernel",)),
+            ("flash_attention kernel", ("flash_fwd_kernel",)),
+            ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",
+                               "sm80_")),
+            ("copies and casts", ("copy", "Memcpy")),
+            ("reductions", ("reduce", "softmax", "Softmax")),
+            ("elementwise", ("elementwise", "Memset", "index", "gather",
+                             "scatter", "embedding", "cat")))
+
+
+def nd_run(name, arrays, params, train, ctx, cots=None, which=(),
+           dtypes=None):
+    """One call of registry op `name` on NDArrays made on `ctx` from
+    numpy `arrays`; with `cots`, under record() and with a backward from
+    those head gradients into the float inputs of `which`. Returns (the
+    outputs, the inputs) as numpy, and the inputs' gradients."""
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ndarray.ndarray import invoke
+    from mxnet_tpu_torch.ops import registry as R
+    op = R.get(name)
+    with ctx:
+        ins = [nd.array(a, dtype=(dtypes or {}).get(k, a.dtype))
+               for k, a in enumerate(arrays)]
+        grads = {}
+        if cots is None:
+            with autograd.train_mode() if train else autograd.pause():
+                outs = invoke(op, ins, dict(params))
+        else:
+            for k in which:
+                if np.issubdtype(arrays[k].dtype, np.floating):
+                    ins[k].attach_grad()
+            with autograd.record(train_mode=train):
+                outs = invoke(op, ins, dict(params))
+            heads = [o for o in outs if o._data.is_floating_point()]
+            autograd.backward(heads, [nd.array(c) for c in
+                                      cots[:len(heads)]])
+            grads = {k: ins[k].grad.asnumpy() for k in which
+                     if ins[k].grad is not None}
+    return ([o.asnumpy() for o in outs], [i.asnumpy() for i in ins],
+            grads)
+
+
+def nd_sweep(dev):
+    """Every registered op on the card against the same op on the CPU,
+    from the case table of tools/torch_op_cases.py: outputs, the inputs
+    after the call (aux write-backs) and, for the differentiable ops,
+    the gradients of one record() -> backward; the random ops by the
+    mean and variance of their draws."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry as R
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from tools import torch_op_cases as C
+    names = R.list_ops()
+    t0 = time.perf_counter()
+    failures, ran = [], 0
+    card, host = mx.gpu(dev.index or 0), mx.cpu()
+    for name in names:
+        ran += 1
+        case = C.case_of(name, R.get)
+        try:
+            if case is None:
+                rcase = C.random_case_of(name, R.get)
+                if rcase is None:
+                    raise AssertionError("no case")
+                make, params = rcase
+                arrays = make(C.rng_for(name))
+                mx.random.seed(0)
+                got = nd_run(name, arrays, params, False, card)[0][0]
+                want = nd_run(name, arrays, params, False, host)[0][0]
+                if got.shape != want.shape or got.dtype != want.dtype:
+                    raise AssertionError("draws %s %s vs %s %s" % (
+                        got.shape, got.dtype, want.shape, want.dtype))
+                rows = got.reshape(-1, got.shape[-1]) if arrays and \
+                    got.ndim > 1 else got.reshape(1, -1)
+                for g, w in zip(rows, want.reshape(rows.shape)):
+                    diff = C.draws_agree(g, w)
+                    if diff:
+                        raise AssertionError(diff)
+                continue
+            make, variants, tol_class, grad, opts = case
+            tol = ND_KERNEL_TOL.get(name, ND_CARD_TOL[tol_class])
+            if R.get(name) is R.get("LayerNorm"):
+                tol = ND_KERNEL_TOL["LayerNorm"]
+            dtypes = None
+            for i, v in enumerate(variants):
+                params, train, alt = C.split_params(v)
+                arrays = (alt or make)(C.rng_for(name))
+                if name in ND_MP:
+                    dtypes = {k: "bfloat16" for k, a in enumerate(arrays)
+                              if a.dtype == np.float16}
+                outs = {}
+                for where in (card, host):
+                    outs[where] = nd_run(name, arrays, params, train,
+                                         where, dtypes=dtypes)
+                # the arrays held in bf16 (the weight, out and in)
+                n_out = len(outs[host][0])
+                low = {0} | {n_out + j for j in dtypes} if dtypes else ()
+                for k, (g, w) in enumerate(zip(*(outs[c][0] + outs[c][1]
+                                                 for c in (card, host)))):
+                    t = 2.0 ** -8 if k in low else tol
+                    diff = C.compare(g, w, t, opts.get("up_to_sign", False))
+                    if diff:
+                        raise AssertionError("variant %d array %d: %s"
+                                             % (i, k, diff))
+                if not grad:
+                    continue
+                r = np.random.RandomState(i + 7)
+                cots = [C.f32(r.uniform(-1, 1, o.shape))
+                        for o in outs[host][0]
+                        if np.issubdtype(o.dtype, np.floating)]
+                which = opts.get("grad_inputs", range(len(arrays)))
+                gc = nd_run(name, arrays, params, train, card, cots, which)[2]
+                gh = nd_run(name, arrays, params, train, host, cots, which)[2]
+                for k in gh:
+                    diff = C.compare(gc[k], gh[k], tol)
+                    if diff:
+                        raise AssertionError("variant %d d/d input %d: %s"
+                                             % (i, k, diff))
+        except Exception as e:  # noqa: BLE001 - every op is reported
+            failures.append("%s: %s: %s" % (name, type(e).__name__, e))
+    torch.cuda.synchronize()
+    if failures:
+        fail("nd_sweep: %d of %d ops failed on the card against the CPU:\n"
+             "%s" % (len(failures), ran, "\n".join(failures)))
+    unique = len({id(R.get(n)) for n in names})
+    emit(phase="nd_sweep", ops_run=ran, ops_passed=ran - len(failures),
+         unique_ops=unique, seconds=time.perf_counter() - t0,
+         tol_card_vs_cpu=ND_CARD_TOL, tol_kernels=ND_KERNEL_TOL)
+    return dict(ops_run=ran, ops_passed=ran - len(failures))
+
+
+def nd_flash(ops, dev, card, gen):
+    """nd.contrib.flash_attention under record() with a backward, at
+    (8, 12, 1024, 64) causal in fp32 and bf16: one kernel launch a call;
+    the output against attention_plain and the gradients against
+    autograd through attention_plain (what the op's backward is); times
+    of the forward and of forward + backward beside the plain version
+    and SDPA."""
+    import torch.nn.functional as F
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ndarray import NDArray
+    shape = (8, 12, 1024, 64)
+    B, H, T, D = shape
+    rows, launches = [], 0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, cot = (torch.randn(shape, generator=gen, device=dev)
+                        .to(dtype) for _ in range(4))
+        arrs = [NDArray(t.clone()) for t in (q, k, v)]
+        for a in arrs:
+            a.attach_grad()
+        head = NDArray(cot)
+
+        def op_fwd_bwd():
+            with autograd.record():
+                out = nd.contrib.flash_attention(*arrs, causal=True)
+            out.backward(head)
+            return out
+
+        ops.reset_launch_counts()
+        out = op_fwd_bwd()
+        torch.cuda.synchronize()
+        n = ops.launch_counts()["flash_attention"]
+        launches += n
+        if n != 1:
+            fail("nd_flash %s: %d flash_attention launches in one call, "
+                 "want 1" % (dtype, n))
+        refs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        ref = ops.attention_plain(*refs, causal=True)
+        ref.backward(cot)
+        tol = TOL[("flash_attention", dtype)]
+        err = (out._data.float() - ref.float()).abs().max().item()
+        gerr = max((a.grad._data.float() - r.grad.float()).abs().max().item()
+                   for a, r in zip(arrs, refs))
+        if not (np.isfinite(err) and np.isfinite(gerr)) or err > tol or \
+                gerr > tol:
+            fail("nd_flash %s: output err %g, gradient err %g > %g"
+                 % (dtype, err, gerr, tol))
+        sq, sk, sv = (t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+
+        def sdpa_fwd_bwd():
+            F.scaled_dot_product_attention(sq, sk, sv, is_causal=True) \
+                .backward(cot)
+
+        def plain_fwd_bwd():
+            ops.attention_plain(*refs, causal=True).backward(cot)
+
+        fwd = lambda: nd.contrib.flash_attention(  # noqa: E731
+            *arrs, causal=True)
+        fwd_ms, sdpa_fwd_ms = paired_ms(fwd, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), iters=10)
+        fb_ms, sdpa_fb_ms = paired_ms(op_fwd_bwd, sdpa_fwd_bwd, iters=5,
+                                      rounds=3)
+        elem = q.element_size()
+        flops = 2 * B * H * T * (T + 1) * D
+        # forward + backward of causal attention: the forward's two
+        # products and the backward's five, over the pairs j <= i
+        fb_flops = flops * 7 / 2
+        # the math the kernel runs: bf16 tensor cores, or fp32 as 3xTF32
+        # (as check_flash bounds the serve row); the least time for the
+        # fp32 backward's products is the same 3xTF32
+        if dtype == torch.bfloat16:
+            mult, peak = 1, BF16_FLOP_S
+        else:
+            mult, peak = 3, TF32_FLOP_S
+        rows.append(dict(
+            dtype=str(dtype), shape=list(shape), max_abs_err=err,
+            grad_max_abs_err=gerr, tol=tol, launches_per_call=n,
+            fwd_ms=fwd_ms, fwd_device_ms=kernel_device_ms(
+                fwd, "flash_fwd_kernel"),
+            fwd_plain_ms=cuda_ms(lambda: ops.attention_plain(
+                q, k, v, causal=True), iters=10),
+            fwd_library_ms=sdpa_fwd_ms, fwd_bwd_ms=fb_ms,
+            fwd_bwd_device_ms=device_ms(op_fwd_bwd, n=3),
+            fwd_bwd_plain_ms=cuda_ms(plain_fwd_bwd, iters=5),
+            fwd_bwd_library_ms=sdpa_fb_ms,
+            fwd_bound=bound(4 * B * H * T * D * elem, mult * flops, peak),
+            fwd_bwd_bound=bound(8 * B * H * T * D * elem, mult * fb_flops,
+                                peak)))
+    emit(phase="nd_flash", card=card, rows=rows, launches=launches)
+    return dict(rows=rows, launches=launches)
+
+
+def nd_save(dev):
+    """Arrays written by nd.save from the card, read back by nd.load on
+    the CPU: names, dtypes and values bit for bit (bf16 as float32)."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+    rng = np.random.RandomState(6)
+    want = {"w_float32": rng.randn(64, 33).astype(np.float32),
+            "w_float16": rng.randn(17).astype(np.float16),
+            "w_int32": rng.randint(-9, 9, (5, 5)).astype(np.int32),
+            "w_uint8": rng.randint(0, 255, (7,)).astype(np.uint8)}
+    with mx.gpu(dev.index or 0):
+        arrays = {k: nd.array(v, dtype=v.dtype) for k, v in want.items()}
+        arrays["w_bfloat16"] = nd.array(want["w_float32"][:4],
+                                        dtype="bfloat16")
+    want["w_bfloat16"] = arrays["w_bfloat16"].asnumpy()
+    with tempfile.TemporaryDirectory() as d:
+        fname = os.path.join(d, "card.params")
+        nd.save(fname, arrays)
+        with mx.cpu():
+            got = nd.load(fname)
+    for k, v in want.items():
+        g = got[k]
+        if g.context != mx.cpu() or g.dtype != v.dtype or \
+                not np.array_equal(g.asnumpy(), v):
+            fail("nd_save: %s came back as %s %s on %s" % (
+                k, g.dtype, g.shape, g.context))
+    emit(phase="nd_save", arrays=sorted(want), bit_identical=True)
+
+
+def nd_cross_entropy(nd, logits, labels):
+    """Mean token cross entropy through registry ops."""
+    return -nd.mean(nd.pick(nd.log_softmax(logits, axis=-1), labels,
+                            axis=-1))
+
+
+def nd_gpt_step(nd, autograd, net, P, moms, tok, labels):
+    """One training step through mx.nd: record the Gluon forward and the
+    loss, backward, one sgd_mom_update of every weight in place.
+    Returns the loss (an NDArray) and the backward's host milliseconds
+    (no synchronise: what the call costs the host)."""
+    with autograd.record():
+        logits = net.hybrid_forward(nd, tok, **P)
+        loss = nd_cross_entropy(nd, logits, labels)
+    t = time.perf_counter()
+    loss.backward()
+    bwd_host_ms = (time.perf_counter() - t) * 1e3
+    for k, w in P.items():
+        nd.sgd_mom_update(w, w.grad, moms[k], out=w, **ND_SGD)
+    return loss, bwd_host_ms
+
+
+def nd_gpt_setup(cfg, ctx, seed, batch, T):
+    """A GPT of `cfg` on `ctx` for the mx.nd path: its seeded weights as
+    NDArrays with gradient buffers (the net's parameters share their
+    storage), zero momenta, and seeded tokens with their next-token
+    labels."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.convert import init_gpt_params
+    from mxnet_tpu_torch.gluon.model_zoo import GPTDecoder
+    spec = dict(cfg, head_dim=cfg["embed_dim"] // cfg["num_heads"],
+                mlp_hidden=cfg["embed_dim"] * cfg["mlp_ratio"])
+    with ctx:
+        P = {k: nd.array(v) for k, v in
+             init_gpt_params(spec, seed=seed).items()}
+        moms = {k: nd.zeros(v.shape) for k, v in P.items()}
+        toks = np.random.RandomState(seed + 1).randint(
+            0, cfg["vocab_size"], (batch, T + 1))
+        tok = nd.array(toks[:, :-1], dtype="int32")
+        labels = nd.array(toks[:, 1:], dtype="int32")
+    net = GPTDecoder(params={k: v._data for k, v in P.items()},
+                     device=ctx.torch_device, **cfg)
+    for v in P.values():
+        v.attach_grad()
+    return net, P, moms, tok, labels
+
+
+def nd_step_profile(fn):
+    """One call of fn() under torch.profiler (host and device, warmed as
+    warm_profile does): {kernel: device microseconds}, {kernel: launches
+    seen}, and the device microseconds spent under the plain LayerNorm
+    backward (LayerNormFunctionBackward's kernels)."""
+    from torch.profiler import ProfilerActivity
+    ka = warm_profile(fn, 1, [ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]).key_averages()
+    cuda = [e for e in ka if on_device(e)]
+    ln_bwd = max([e.device_time_total for e in ka
+                  if "LayerNormFunctionBackward" in e.key] or [0.0])
+    return ({e.key: e.self_device_time_total for e in cuda},
+            {e.key: e.count for e in cuda}, ln_bwd)
+
+
+def host_us(fn, n=2000):
+    """Host microseconds per call of fn() in a loop of n (the clock stops
+    before the closing synchronise: a launch counts as its enqueue)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def nd_gpt(ops, dev, card, gen):
+    """GPT-2-small trained through mx.nd: the Gluon forward
+    (GPTDecoder.hybrid_forward on registry ops) under record(), a token
+    cross entropy of nd.log_softmax and nd.pick, backward, and
+    nd.sgd_mom_update of each of the 148 weights in place; batch 8 x
+    1024 tokens, fp32, seeded weights and tokens. A narrow twin (2
+    layers, width 64) runs 3 steps on the card and on the CPU first."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+    from mxnet_tpu_torch.ndarray import NDArray
+    from mxnet_tpu_torch.ops import sgd_momentum as sgd_mod
+    ctx = mx.gpu(dev.index or 0)
+
+    # the narrow twin, card against CPU
+    twin = dict(vocab_size=512, max_seq_len=64, num_layers=2, num_heads=2,
+                embed_dim=64, mlp_ratio=4)
+    runs = {}
+    for where in (ctx, mx.cpu()):
+        net, P, moms, tok, labels = nd_gpt_setup(twin, where, 11, 2, 64)
+        losses = [float(nd_gpt_step(nd, autograd, net, P, moms, tok,
+                                    labels)[0].asscalar())
+                  for _ in range(3)]
+        runs[where.device_type] = (losses, {k: v.asnumpy()
+                                            for k, v in P.items()})
+    (lc, pc), (lh, ph) = runs["gpu"], runs["cpu"]
+    twin_loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    twin_param_err = max(float(np.abs(pc[k] - ph[k]).max()) for k in ph)
+    if not np.isfinite(lc).all() or twin_loss_err > 1e-4 or \
+            twin_param_err > 1e-4:
+        fail("nd_gpt twin: card vs CPU losses %s vs %s, max param err %g "
+             "(tol 1e-4)" % (lc, lh, twin_param_err))
+
+    cfg = GPT2_SMALL
+    B, T = ND_GPT["batch"], ND_GPT["T"]
+    t0 = time.perf_counter()
+    net, P, moms, tok, labels = nd_gpt_setup(cfg, ctx, 0, B, T)
+    n_weights = sum(v.size for v in P.values())
+
+    def step():
+        return nd_gpt_step(nd, autograd, net, P, moms, tok, labels)
+
+    warm = [float(step()[0].asscalar()) for _ in range(ND_GPT["warm"])]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # the main path, with every launch counter at 0 just before it
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    walls, hosts, bwd_host, losses = [], [], [], []
+    for _ in range(ND_GPT["steps"]):
+        t = time.perf_counter()
+        loss, bwd_ms = step()
+        hosts.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss.asscalar()))
+        walls.append((time.perf_counter() - t) * 1e3)
+        bwd_host.append(bwd_ms)
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = ND_GPT["steps"]
+    want = {"layer_norm": 25 * n, "fused_sgd_momentum": 148 * n,
+            "flash_attention": 0, "conv1x1_bn_stats": 0}
+    if launches != want or len(P) != 148:
+        fail("nd_gpt: launches %s over %d steps of %d weights, want %s"
+             % (launches, n, len(P), want))
+    if not np.isfinite(warm + losses).all():
+        fail("nd_gpt: non-finite loss: warm %s, timed %s" % (warm, losses))
+
+    # where a step's device time goes
+    kernels, counts, ln_bwd_us = nd_step_profile(step)
+    # the 148 updates' device time within that step, when the profiler
+    # kept the record of every launch (else None: not measured)
+    sgd_keys = [k for k in kernels if "MXNetForm" in k]
+    sgd_in_step_ms = (sum(kernels[k] for k in sgd_keys) / 1e3
+                      if sum(counts[k] for k in sgd_keys) == len(P)
+                      else None)
+    by_class = by_kind(kernels, 1, ND_KINDS)
+    by_class["plain LayerNorm backward (its kernels, within the "
+             "classes above)"] = ln_bwd_us / 1e3
+    step_ms = float(np.median(walls))
+    device_step_ms = sum(kernels.values()) / 1e3
+
+    # the NDArray layer's dispatch: one small invoke against bare torch
+    with ctx:
+        a = nd.ones((4, 4))
+    ta = a._data
+    invoke_us = host_us(lambda: nd.broadcast_add(a, a))
+    bare_us = host_us(lambda: torch.add(ta, ta))
+
+    # the kernels at this path's call sites
+    ln_row = check_layer_norm(ops, dev, B * T, torch.float32, gen)
+
+    def sgd_loop():
+        for k, w in P.items():
+            nd.sgd_mom_update(w, w.grad, moms[k], out=w, **ND_SGD)
+
+    ws = [w._data.detach() for w in P.values()]
+    gs = [w.grad._data for w in P.values()]
+    vs = [m._data for m in moms.values()]
+    # the one-tensor update at these shapes (the 50257 x 768 embedding
+    # too) against its plain version, on clones of this step's weights,
+    # gradients and momenta; the relative error of check_sgd_mxnet
+    want = [sgd_mod.sgd_mxnet_plain(w, g, v, **ND_SGD)
+            for w, g, v in zip(ws, gs, vs)]
+    cw, cg, cm = ([NDArray(t.clone()) for t in ts] for ts in (ws, gs, vs))
+    for w, g, v in zip(cw, cg, cm):
+        nd.sgd_mom_update(w, g, v, out=w, **ND_SGD)
+    torch.cuda.synchronize()
+    sgd_err = max(max((w._data - w_new).abs().max().item()
+                      / max(1.0, w_new.abs().max().item()),
+                      (v._data - v_new).abs().max().item())
+                  for w, v, (w_new, v_new) in zip(cw, cm, want))
+    sgd_tol = TOL[("sgd_mxnet", torch.float32)]
+    if not np.isfinite(sgd_err) or sgd_err > sgd_tol:
+        fail("nd_gpt: nd.sgd_mom_update over the %d weights against "
+             "sgd_mxnet_plain: max err %g > %g" % (len(P), sgd_err, sgd_tol))
+    del want, cw, cg, cm
+    params = [torch.nn.Parameter(w.clone()) for w in ws]
+    for p_, g in zip(params, gs):
+        p_.grad = g.clone()
+    opt = torch.optim.SGD(params, lr=ND_SGD["lr"],
+                          momentum=ND_SGD["momentum"], dampening=0,
+                          weight_decay=ND_SGD["wd"], fused=True)
+    opt.step()
+    sgd_ms, sgd_lib_ms = paired_ms(sgd_loop, opt.step, iters=5, rounds=3)
+    nbytes = 20 * n_weights
+    sgd_row = dict(
+        tensors=len(P), elements=n_weights, ms=sgd_ms,
+        max_abs_err=sgd_err, tol=sgd_tol,
+        device_ms=kernel_device_ms(sgd_loop, "MXNetForm", n=1,
+                                   launches=len(P)),
+        device_ms_in_step=sgd_in_step_ms,
+        host_us_per_call=host_us(sgd_loop, n=5) / len(P),
+        plain_ms=cuda_ms(lambda: [sgd_mod.sgd_mxnet_plain(
+            w, g, v, ND_SGD["lr"], ND_SGD["momentum"], ND_SGD["wd"])
+            for w, g, v in zip(ws, gs, vs)], iters=5),
+        library_ms=sgd_lib_ms,
+        library="fused torch.optim.SGD over the same 148 tensors",
+        library_device_ms=device_ms(opt.step, n=3),
+        **bound(nbytes, 9 * n_weights, FP32_FLOP_S))
+
+    # C3: backward's host cost with a ResNet-50's parameters alive too
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    r50 = resnet50_v1(layout="NHWC", device=dev)
+    r50_params = sum(1 for p_ in r50.collect_params().values()
+                     if p_.grad_req != "null")
+    with_r50 = []
+    for _ in range(2):
+        loss, bwd_ms = step()
+        float(loss.asscalar())
+        with_r50.append(bwd_ms)
+    del r50
+    emit(phase="nd_gpt", card=card, model="GPT-2-small (12 layers, 12 "
+         "heads, width 768, vocab 50257), seeded random weights, trained "
+         "through mx.nd (GPTDecoder.hybrid_forward on registry ops)",
+         dtype="fp32", batch=B, seq_len=T, weights=len(P),
+         weight_elements=n_weights, warm_losses=warm, losses=losses,
+         step_ms=step_ms, step_ms_all=walls, host_ms=float(np.median(hosts)),
+         device_ms=device_step_ms,
+         device_busy_share=device_step_ms / step_ms,
+         tokens_s=B * T / (step_ms / 1e3), peak_mem_gb=peak_gb,
+         setup_s=setup_s, launches=launches,
+         device_ms_by_class=by_class,
+         top_device_ms=breakdown(kernels, 1, step_ms, 10)["top_device_ms"],
+         invoke_host_us=invoke_us, bare_torch_add_host_us=bare_us,
+         invoke_overhead_us=invoke_us - bare_us,
+         backward_host_ms=float(np.median(bwd_host)),
+         backward_host_ms_with_resnet50=float(np.median(with_r50)),
+         resnet50_params_alive=r50_params,
+         twin=dict(losses_card=lc, losses_cpu=lh,
+                   loss_max_abs_err=twin_loss_err,
+                   param_max_abs_err=twin_param_err, tol=1e-4),
+         layer_norm_row=ln_row, sgd_one_tensor=sgd_row)
+    return dict(launches=launches, ln_row=ln_row, sgd_row=sgd_row)
 
 
 def main():
@@ -1262,9 +1838,21 @@ def main():
     # phases 8, 9: the Gluon loop
     gluon_small(dev)
     gluon_launches = gluon_train(dev, card)
+    # phases 10-13: the eager array layer (mx.nd)
+    nd_sweep(dev)
+    flash_nd = nd_flash(ops, dev, card, gen)
+    nd_save(dev)
+    gpt_nd = nd_gpt(ops, dev, card, gen)
     by_path = {name: {"train": train_launches[name],
-                      "gluon_train": gluon_launches[name]}
+                      "gluon_train": gluon_launches[name],
+                      "nd_gpt": gpt_nd["launches"][name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
+    by_path["layer_norm"] = {"serve": launches["layer_norm"],
+                             "nd_gpt": gpt_nd["launches"]["layer_norm"]}
+    by_path["flash_attention"] = {
+        "serve": launches["flash_attention"],
+        "nd_flash": flash_nd["launches"],
+        "nd_gpt": gpt_nd["launches"]["flash_attention"]}
     launches.update({name: sum(v.values()) for name, v in by_path.items()})
 
     # the main path's own shapes in its serving dtype (fp32)
@@ -1297,7 +1885,17 @@ def main():
             bound_ms=r["bound_us"] / 1e3, bound_by=r["bound_by"],
             library_ms=r["library_ms"],
             library_device_ms=r["library_device_ms"], shape=r["shape"],
-            dtype="fp32"))
+            dtype="fp32", launches_by_path=by_path[name]))
+    # the mx.nd call sites: LayerNorm over nd_gpt's (8192, 768) rows, and
+    # the flash op at (8, 12, 1024, 64) with its plain-vjp backward
+    ln = gpt_nd["ln_row"]
+    kernels[1]["nd_gpt"] = dict(
+        shape=ln["shape"], dtype="fp32", max_abs_err=ln["max_abs_err"],
+        ms=ln["kernel_ms"], device_ms=ln["device_ms"],
+        plain_ms=ln["plain_ms"], bound_ms=ln["bound_us"] / 1e3,
+        bound_by=ln["bound_by"], library_ms=ln["library_ms"],
+        library_device_ms=ln["library_device_ms"])
+    kernels[0]["nd_flash"] = flash_nd["rows"]
     # the update: ResNet-50's 193 tensors in one launch, in the m-form
     # (ShardedTrainer, fp32) and in MXNet's form (gluon.Trainer, mp bf16)
     r = next(r for r in rows if r["name"] == "fused_sgd_momentum" and
@@ -1326,7 +1924,13 @@ def main():
                          "train (ShardedTrainer)"),
                "mxnet": form(rm, by_path["fused_sgd_momentum"]
                              ["gluon_train"], "gluon_train (gluon.Trainer)"),
-               "mxnet_fp32": form(mx_rows[0], 0, "kernel phase only")}))
+               "mxnet_fp32": form(mx_rows[0], 0, "kernel phase only"),
+               "mxnet_one_tensor": dict(
+                   gpt_nd["sgd_row"], path="nd_gpt (nd.sgd_mom_update, one "
+                   "launch per weight, summed over the 148)",
+                   launches=by_path["fused_sgd_momentum"]["nd_gpt"],
+                   bound_ms=gpt_nd["sgd_row"]["bound_us"] / 1e3)},
+        launches_by_path=by_path["fused_sgd_momentum"]))
     # the train forward's 36 calls in bf16, timed shape by shape, summed
     kernels.append(dict(
         name="conv1x1_bn_stats", route="cuda",

@@ -15,19 +15,25 @@ Ported so far: slice 1, GPT continuous-batching decode
 `ops.conv1x1_bn_stats` and `ops.fused_sgd_momentum`); slice 3 in part,
 the Gluon imperative training loop (`autograd`, `gluon.Parameter`,
 `initializer`, `lr_scheduler`, `optimizer`, `kvstore`, `gluon.Trainer`),
-whose SGD update is `ops.fused_sgd_momentum` in MXNet's form.
+whose SGD update is `ops.fused_sgd_momentum` in MXNet's form; and
+the eager array layer (`nd`: `NDArray`, the operator registry and its
+core ops, `Context`, `nd.save`/`nd.load`), with `LayerNorm`,
+`_contrib_flash_attention` and the SGD update ops on the kernels.
 """
 from .base import MXNetError, __version__, getenv
-from .context import DeviceUnreachable, cpu, gpu, resolve_device
+from .context import (Context, DeviceUnreachable, cpu, current_context,
+                      gpu, num_gpus, resolve_device)
 from . import (autograd, convert, gluon, initializer, kvstore, lr_scheduler,
                ndarray, observability, ops, optimizer, parallel, random,
                resilience, serving)
 
 init = initializer
 kv = kvstore
+nd = ndarray
 
-__all__ = ["MXNetError", "DeviceUnreachable", "__version__", "autograd",
-           "convert", "cpu", "getenv", "gluon", "gpu", "init", "initializer",
-           "kv", "kvstore", "lr_scheduler", "ndarray", "observability",
+__all__ = ["Context", "MXNetError", "DeviceUnreachable", "__version__",
+           "autograd", "convert", "cpu", "current_context", "getenv",
+           "gluon", "gpu", "init", "initializer", "kv", "kvstore",
+           "lr_scheduler", "nd", "ndarray", "num_gpus", "observability",
            "ops", "optimizer", "parallel", "random", "resilience",
            "resolve_device", "serving"]

@@ -9,14 +9,27 @@ with batch statistics and moves its running statistics only in training
 mode, so ``net(x)`` outside `record()` predicts and writes nothing.
 
 The tape is PyTorch's: `record()` turns torch's grad mode on and `pause()`
-turns it off, for the scope. `backward` (:266) takes the gradients of the
-heads with respect to every live Gluon `Parameter` whose ``grad_req`` is
-"write" or "add", through `torch.autograd.grad`, and writes them with
-MXNet's semantics: "write" replaces the parameter's gradient, "add" adds
-to it, and a parameter the heads do not reach keeps its gradient. Each
-written gradient gets the fresh mark that
-``Trainer.step(ignore_stale_grad=True)`` reads. Torch's own ``.grad``
-accumulation is not used.
+turns it off, for the scope. Outside them torch's grad mode is whatever
+the caller set, so every entry point of the port that computes (a
+top-level `HybridBlock` call, `ndarray.invoke`) runs under
+``torch.set_grad_enabled(is_recording())``: a predict-mode ``net(x)``
+builds no graph and keeps no activation alive.
+
+`backward` (:266) takes the gradients of the heads (NDArrays or
+tensors recorded by the port) with respect to every live variable: each
+Gluon `Parameter` whose ``grad_req`` is "write" or "add", and each
+NDArray given a gradient buffer by ``attach_grad`` or `mark_variables`,
+through `torch.autograd.grad`, and writes them with MXNet's semantics:
+"write" replaces the gradient, "add" adds to it, "null" has none, and a
+variable the heads do not reach keeps its gradient. Each written
+gradient gets the fresh mark that ``Trainer.step(ignore_stale_grad=True)``
+reads. Torch's own ``.grad`` accumulation is not used. A head that the
+port did not record (computed outside ``record()``) raises `MXNetError`
+with the reference's words (:171-174).
+
+`grad` (:486) returns the gradients instead of writing them, and with
+``create_graph=True`` records them, so they can be differentiated again;
+`Function` (:513) is a custom differentiable function on NDArrays.
 """
 from __future__ import annotations
 
@@ -27,15 +40,17 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["backward", "is_recording", "is_training", "pause",
-           "predict_mode", "record", "set_recording", "set_training",
-           "train_mode"]
+__all__ = ["Function", "backward", "grad", "is_recording", "is_training",
+           "mark_variables", "pause", "predict_mode", "record",
+           "set_recording", "set_training", "train_mode"]
 
 _state = threading.local()
 
-# every Gluon Parameter that may take a gradient; `backward` writes those
-# the heads reach (a weak set: a dropped block's parameters leave it)
+# every Gluon Parameter that may take a gradient, and every NDArray with a
+# gradient buffer; `backward` writes those the heads reach (weak sets: a
+# dropped block's parameters, a dropped array, leave them)
 _live = weakref.WeakSet()
+_live_arrays = weakref.WeakSet()
 
 
 def _st():
@@ -115,32 +130,184 @@ def _track(param):
     _live.add(param)
 
 
-def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
-    """Gradients of `heads` (a tensor or a list) with respect to every
-    live parameter they reach, written as each one's ``grad_req`` says.
-    `head_grads` seed the heads (None: ones, MXNet's seed for a
-    per-sample loss). Raises `MXNetError` when no head was recorded."""
-    if isinstance(heads, torch.Tensor):
+def _track_array(arr):
+    """Called by `NDArray.attach_grad`."""
+    _live_arrays.add(arr)
+
+
+_NOT_RECORDED = ("cannot differentiate: output is not in the recorded "
+                 "graph (was it computed under autograd.record()?)")
+
+
+def _tensors(heads, head_grads):
+    """(head tensors, seeds): NDArrays unwrapped, None seeds as ones."""
+    from .ndarray import NDArray
+    if isinstance(heads, (NDArray, torch.Tensor)):
         heads = [heads]
-    # plain tensors: the gradients must not inherit NDArray's type
-    heads = [h.as_subclass(torch.Tensor) for h in heads]
+    hs = [h._data if isinstance(h, NDArray) else h for h in heads]
     if head_grads is None:
-        head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
+        head_grads = [None] * len(hs)
+    elif isinstance(head_grads, (NDArray, torch.Tensor)):
         head_grads = [head_grads]
-    seeds = [torch.ones_like(h) if g is None
-             else g.as_subclass(torch.Tensor)
-             for h, g in zip(heads, head_grads)]
-    if not all(h.requires_grad for h in heads):
-        raise MXNetError("cannot differentiate: output is not in the "
-                         "recorded graph (was it computed under "
-                         "autograd.record()?)")
+    seeds = [torch.ones_like(h) if g is None else
+             (g._data if isinstance(g, NDArray) else g)
+             for h, g in zip(hs, head_grads)]
+    for h in hs:
+        if not h.requires_grad:
+            raise MXNetError(_NOT_RECORDED)
+    return hs, seeds
+
+
+def _autograd(heads, leaves, seeds, retain_graph, create_graph=False):
+    try:
+        return torch.autograd.grad(heads, leaves, seeds,
+                                   retain_graph=retain_graph,
+                                   create_graph=create_graph,
+                                   allow_unused=True)
+    except RuntimeError as e:
+        if "modified by an inplace operation" in str(e):
+            raise MXNetError(
+                "backward: an array that the recorded graph saved was "
+                "overwritten in place since: %s" % e) from None
+        if "backward through the graph a second time" in str(e):
+            raise MXNetError(
+                "backward: graph was already freed (pass "
+                "retain_graph=True to backward() to reuse it)") from None
+        raise
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of `heads` (an NDArray or tensor, or a list) with respect
+    to every live variable they reach, written as each one's
+    ``grad_req`` says. `head_grads` seed the heads (None: ones, MXNet's
+    seed for a per-sample loss). Raises `MXNetError` for a head the port
+    did not record."""
+    hs, seeds = _tensors(heads, head_grads)
     params = [p for p in list(_live) if p._takes_grad()]
-    leaves = [p.data() for p in params]
+    arrays = [a for a in list(_live_arrays)
+              if a._grad_req in ("write", "add") and a._data.requires_grad
+              and a._data.is_leaf]
+    leaves = [p.data() for p in params] + [a._data for a in arrays]
     if not leaves:
         return
-    grads = torch.autograd.grad(heads, leaves, seeds,
-                                retain_graph=retain_graph, allow_unused=True)
+    with torch.set_grad_enabled(False):
+        grads = _autograd(hs, leaves, seeds, retain_graph)
     for p, g in zip(params, grads):
         if g is not None:
             p._write_grad(g)
+    for a, g in zip(arrays, grads[len(params):]):
+        if g is not None:
+            _write_array_grad(a, g)
+
+
+def _write_array_grad(arr, g):
+    """"write" replaces the buffer's values, "add" adds to them, in
+    place; the buffer becomes fresh."""
+    buf = arr._grad
+    with torch.no_grad():
+        if arr._grad_req == "add":
+            buf._data.add_(g)
+        else:
+            buf._data.copy_(g)
+    buf._fresh_grad = True
+
+
+def mark_variables(variables, gradients=None, grad_reqs="write"):
+    """Make arrays variables of the graph (:127): each gets a gradient
+    buffer, the array in `gradients` where one is given (backward writes
+    into it in place), with its `grad_reqs`."""
+    from .ndarray import NDArray
+    if isinstance(variables, NDArray):
+        variables = [variables]
+    if gradients is None:
+        gradients = [None] * len(variables)
+    elif isinstance(gradients, NDArray):
+        gradients = [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        v.attach_grad(grad_req=req)
+        if g is not None:
+            v._grad = g
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of `heads` with respect to `variables` (NDArrays of
+    the recorded graph), returned as NDArrays and written nowhere
+    (:486). With ``create_graph=True`` they are recorded themselves, so
+    a later backward or grad differentiates through them."""
+    from .ndarray import NDArray
+    hs, seeds = _tensors(heads, head_grads)
+    if isinstance(variables, NDArray):
+        variables = [variables]
+    if retain_graph is None:
+        retain_graph = create_graph
+    leaves = [v._data for v in variables]
+    for t in leaves:
+        if not t.requires_grad:
+            raise MXNetError("autograd.grad: a variable is not in the "
+                             "recorded graph (call attach_grad first)")
+    with torch.set_grad_enabled(bool(create_graph)):
+        gs = _autograd(hs, leaves, seeds, retain_graph, create_graph)
+    out = []
+    for g in gs:
+        if g is None:
+            raise MXNetError("autograd.grad: a variable is unreachable "
+                             "from the heads")
+        out.append(NDArray(g))
+    return out
+
+
+class Function:
+    """A custom differentiable function on NDArrays (:513): subclass it
+    with `forward(self, *inputs)` and `backward(self, *output_grads)`,
+    both on NDArrays; `save_for_backward` keeps what backward needs."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+        func = self
+        single = [False]
+
+        class _Apply(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, *ts):
+                with pause():
+                    outs = func.forward(*[NDArray(t) for t in ts])
+                single[0] = not isinstance(outs, (list, tuple))
+                outs = [outs] if single[0] else list(outs)
+                return tuple(o._data for o in outs)
+
+            @staticmethod
+            def backward(ctx, *gs):
+                with pause():
+                    grads = func.backward(*[NDArray(g) for g in gs])
+                if not isinstance(grads, (list, tuple)):
+                    grads = [grads]
+                return tuple(None if g is None else g._data for g in grads)
+
+        tensors = [x._data for x in inputs]
+        if is_recording():
+            res = _Apply.apply(*tensors)
+        else:
+            with pause():
+                res = func.forward(*inputs)
+            return res
+        outs = [NDArray(t) for t in res]
+        return outs[0] if single[0] else outs

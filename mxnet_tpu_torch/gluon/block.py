@@ -17,6 +17,12 @@ Every parameter and buffer a block registers also gets a Gluon
 `register_buffer`), which `collect_params()` gathers into a
 `ParameterDict` for `gluon.Trainer`; `initialize` and `cast` act on
 them, as block.py:292-309 does.
+
+Calling a block: the outermost call runs under
+``torch.set_grad_enabled(autograd.is_recording())``, so a forward outside
+``autograd.record()`` builds no graph. Type in, type out: `NDArray`
+inputs are unwrapped once there and the outputs wrapped as NDArrays; the
+layers inside run on plain tensors, and tensor inputs give tensors.
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ import threading
 import torch
 from torch import nn
 
+from .. import autograd
 from ..base import MXNetError
+from ..ndarray import NDArray
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["HybridBlock", "collect_params"]
@@ -78,6 +86,24 @@ class HybridBlock(nn.Module):
 
     def _alias(self):
         return type(self).__name__.lower()
+
+    def __call__(self, *args, **kwargs):
+        if getattr(_local, "inside", False):
+            return super().__call__(*args, **kwargs)
+        wrap = any(isinstance(a, NDArray) for a in args)
+        if wrap:
+            args = [a._data if isinstance(a, NDArray) else a for a in args]
+        _local.inside = True
+        try:
+            with torch.set_grad_enabled(autograd.is_recording()):
+                out = super().__call__(*args, **kwargs)
+        finally:
+            _local.inside = False
+        if not wrap:
+            return out
+        if isinstance(out, (tuple, list)):
+            return type(out)(_wrap(o) for o in out)
+        return _wrap(out)
 
     def name_scope(self):
         return self._naming
@@ -161,6 +187,10 @@ class HybridBlock(nn.Module):
                 dst.copy_(src)
         for p in self.collect_params().values():
             p._initialized = True
+
+
+def _wrap(out):
+    return NDArray(out) if isinstance(out, torch.Tensor) else out
 
 
 def collect_params(module):

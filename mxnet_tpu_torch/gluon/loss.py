@@ -1,8 +1,9 @@
 """Losses (counterpart of mxnet_tpu/gluon/loss.py): SoftmaxCrossEntropyLoss.
 
-Under `autograd.record()` a loss returns its per-sample values as an
-`ndarray.NDArray`, so that ``loss.backward()`` seeds ones as MXNet does;
-elsewhere a plain tensor."""
+A loss returns its per-sample values as an `ndarray.NDArray` when it
+records (under `autograd.record()`), so that ``loss.backward()`` seeds
+ones as MXNet does, and when its inputs are NDArrays; a plain tensor
+otherwise."""
 from __future__ import annotations
 
 import torch
@@ -52,8 +53,7 @@ class SoftmaxCrossEntropyLoss(HybridBlock):
         axes = [i for i in range(loss.dim())
                 if i != self._batch_axis % loss.dim()]
         loss = loss.mean(dim=axes) if axes else loss
-        return loss.as_subclass(NDArray) if autograd.is_recording() \
-            else loss
+        return NDArray(loss) if autograd.is_recording() else loss
 
 
 SoftmaxCELoss = SoftmaxCrossEntropyLoss

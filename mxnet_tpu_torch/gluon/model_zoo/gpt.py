@@ -15,6 +15,12 @@ with two kernels in place of plain ops:
   one-token step's attention over the cache stays plain PyTorch, as it
   stays plain XLA in the JAX package: the kernel has no one-query form.
 
+`GPTDecoder.hybrid_forward(F, tokens, **P)` is the Gluon path: the JAX
+package's (gpt.py:237-295) line for line, through the registry ops of
+``F = mx.nd`` on NDArrays (LayerNorm on the `layer_norm` kernel, the
+attention as batch_dot, softmax and batch_dot), so ``autograd.record()``
+trains it. The decode path above does not use it.
+
 Cache layout (shared with serving/decode.py and with the JAX package):
 
     k, v : (num_layers, slots, max_seq_len, num_heads, head_dim)
@@ -217,6 +223,69 @@ class GPTDecoder(nn.Module):
         P = self.decode_params()
         with torch.no_grad():
             return _head(P, _blocks(self._cfg, P, tokens)[0])
+
+    # -- Gluon path ----------------------------------------------------
+    def hybrid_forward(self, F, tokens, **P):
+        """Logits (B, T, vocab) of tokens (B, T) through the operators of
+        `F` (``mx.nd``), with the weights `P` (NDArrays named as in
+        `decode_params()`)."""
+        cfg = self._cfg
+        E, H, D = cfg["embed_dim"], cfg["num_heads"], cfg["head_dim"]
+        V, M = cfg["vocab_size"], cfg["mlp_hidden"]
+        x = F.Embedding(tokens, P["tok_embed_weight"], input_dim=V,
+                        output_dim=E)
+        # (T, E) slice of the position table, shape-agnostically: the
+        # leading axis of tokens^T is T, which slice_like can see
+        pos = F.slice_like(P["pos_embed_weight"], F.transpose(tokens),
+                           axes=(0,))
+        x = F.broadcast_add(x, F.expand_dims(pos, axis=0))
+        # causal mask from token positions: r = 1..T per row
+        r = F.cast(F.cumsum(F.ones_like(tokens), axis=1),
+                   dtype="float32")
+        allowed = F.broadcast_lesser_equal(F.expand_dims(r, axis=1),
+                                           F.expand_dims(r, axis=2))
+        add = F.expand_dims((allowed - 1.0) * _MASK, axis=1)
+        scale = 1.0 / float(np.sqrt(D))
+        for i in range(cfg["num_layers"]):
+            h = F.LayerNorm(x, gamma=P["h%d_ln1_gamma" % i],
+                            beta=P["h%d_ln1_beta" % i], axis=-1,
+                            eps=_LN_EPS)
+            qkv = F.FullyConnected(h, P["h%d_attn_qkv_weight" % i],
+                                   P["h%d_attn_qkv_bias" % i],
+                                   num_hidden=3 * E, flatten=False)
+
+            def heads(t):               # (B,T,E) -> (B,H,T,D)
+                t = F.reshape(t, shape=(0, 0, H, D))
+                return F.transpose(t, axes=(0, 2, 1, 3))
+
+            q = heads(F.slice_axis(qkv, axis=-1, begin=0, end=E))
+            k = heads(F.slice_axis(qkv, axis=-1, begin=E, end=2 * E))
+            v = heads(F.slice_axis(qkv, axis=-1, begin=2 * E,
+                                   end=3 * E))
+            scores = F.batch_dot(q, k, transpose_b=True) * scale
+            p = F.softmax(F.broadcast_add(scores, add), axis=-1)
+            ctx = F.batch_dot(p, v)      # (B,H,T,D)
+            ctx = F.reshape(F.transpose(ctx, axes=(0, 2, 1, 3)),
+                            shape=(0, 0, E))
+            x = x + F.FullyConnected(ctx,
+                                     P["h%d_attn_out_weight" % i],
+                                     P["h%d_attn_out_bias" % i],
+                                     num_hidden=E, flatten=False)
+            h2 = F.LayerNorm(x, gamma=P["h%d_ln2_gamma" % i],
+                             beta=P["h%d_ln2_beta" % i], axis=-1,
+                             eps=_LN_EPS)
+            up = F.Activation(
+                F.FullyConnected(h2, P["h%d_mlp_up_weight" % i],
+                                 P["h%d_mlp_up_bias" % i],
+                                 num_hidden=M, flatten=False),
+                act_type="gelu")
+            x = x + F.FullyConnected(up, P["h%d_mlp_down_weight" % i],
+                                     P["h%d_mlp_down_bias" % i],
+                                     num_hidden=E, flatten=False)
+        xf = F.LayerNorm(x, gamma=P["lnf_gamma"], beta=P["lnf_beta"],
+                         axis=-1, eps=_LN_EPS)
+        return F.FullyConnected(xf, P["tok_embed_weight"], no_bias=True,
+                                num_hidden=V, flatten=False)
 
     # -- decode protocol (consumed by serving.DecodeEngine) --------------
     def decode_spec(self):

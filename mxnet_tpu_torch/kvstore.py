@@ -9,8 +9,10 @@ either stores the sum or, after `set_optimizer`, runs the updater on the
 store's own copy of the weight (``update_on_kvstore``); a pull copies the
 stored value into the targets, skipping a target that is the stored
 tensor itself. A batched push hands all of its keys to the updater's
-`update_all` at once, so a `FusedUpdater` fuses them. The distributed
-types are not ported yet and raise.
+`update_all` at once, so a `FusedUpdater` fuses them. Values and targets
+are tensors or NDArrays (whose tensors are used: a pull into an NDArray
+writes its storage in place). The distributed types are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -25,6 +27,16 @@ __all__ = ["KVStore", "create"]
 _DIST = ("dist_sync", "dist_device_sync", "dist_async", "tpu_dist", "dist")
 
 
+def _tensor(v):
+    """NDArrays (also inside lists) as their tensors."""
+    from .ndarray import NDArray
+    if isinstance(v, NDArray):
+        return v._data
+    if isinstance(v, (list, tuple)):
+        return type(v)(_tensor(x) for x in v)
+    return v
+
+
 def _key_value(key, value):
     if isinstance(key, (list, tuple)):
         if value is None:
@@ -32,8 +44,8 @@ def _key_value(key, value):
         if len(key) != len(value):
             raise MXNetError("got %d keys and %d values"
                              % (len(key), len(value)))
-        return list(key), list(value)
-    return [key], [value]
+        return list(key), [_tensor(v) for v in value]
+    return [key], [_tensor(value)]
 
 
 def _priority_order(n, priorities):

@@ -16,6 +16,12 @@ view too. Its tiles are fixed, so the JAX function's `block_q`/`block_k`
 arguments have no counterpart. Only the forward is ported: the JAX
 backward is not a kernel (it takes the vjp of `_attn_reference`), and
 serving needs no gradient.
+
+The registry op `_contrib_flash_attention` (the JAX package registers it
+at pallas_kernels.py:204) runs the kernel forward through
+`FlashAttentionFunction`, whose backward is autograd through
+`attention_plain`, as the JAX op's backward (`_fa_bwd` :150) is the vjp
+of its plain reference.
 """
 from __future__ import annotations
 
@@ -25,8 +31,9 @@ import torch
 
 from ..base import MXNetError
 from . import _build
+from .registry import register
 
-__all__ = ["flash_attention", "attention_plain"]
+__all__ = ["FlashAttentionFunction", "attention_plain", "flash_attention"]
 
 _NEG_INF = -1e30
 _fn = None
@@ -123,3 +130,32 @@ def flash_attention(q, k, v, causal=False, *, out=None):
 
 #: kernel launches so far (the plain CPU path does not count)
 flash_attention.launches = 0
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """`flash_attention` forward (the kernel on CUDA tensors); backward
+    the vjp of `attention_plain`, recomputed from q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_plain(*qkv, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None
+
+
+@register("_contrib_flash_attention")
+def _flash_attention_op(q, k, v, *, causal=False, block_q=128, block_k=128):
+    """Attention over (B, H, T, D) through the kernel. `block_q` and
+    `block_k` are accepted for the JAX op's signature and ignored: the
+    kernel's tiles are fixed. The head dim must be a multiple of 8 in
+    [8, 128] on the card, where the JAX op takes any."""
+    return FlashAttentionFunction.apply(q, k, v, bool(causal))

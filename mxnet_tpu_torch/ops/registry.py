@@ -1,0 +1,169 @@
+"""Operator registry (counterpart of mxnet_tpu/ops/registry.py, copied:
+that module imports no jax).
+
+Reference: the NNVM op registry + attribute dispatch
+(include/mxnet/op_attr_types.h, src/operator/* NNVM_REGISTER_OP).
+
+An op is a Python function ``fn(*tensors, **static_params) -> tensor |
+tuple`` on torch tensors; its gradient is torch's autograd through it
+(or a `torch.autograd.Function` where the op defines its own, as the
+loss heads and the kernels do). The `Op` attributes keep the JAX
+package's meaning, with two differences of the port:
+
+- a ``needs_rng`` op takes a `torch.Generator` as its first input, in
+  place of a PRNG key: `ndarray.invoke` passes the package's generator
+  for the output's device (`random.generator`);
+- an op with a keyword-only ``ctx`` param (the creation and random ops,
+  which have no input to take a device from) gets the torch device it
+  must create on.
+"""
+from __future__ import annotations
+
+import inspect
+
+from ..base import MXNetError
+
+_OPS = {}
+
+
+class Op:
+    __slots__ = ("name", "fn", "num_outputs", "doc", "params",
+                 "needs_rng", "takes_mode", "visible_outputs", "aux_write",
+                 "input_names", "allow_extra_params")
+
+    def __init__(self, name, fn, num_outputs=1, doc=None, needs_rng=False,
+                 takes_mode=False, visible_outputs=None, aux_write=None,
+                 input_names=None):
+        self.name = name
+        self.fn = fn
+        # int, or callable(params_dict) -> int for ops whose output arity
+        # depends on params (e.g. RNN with/without states, SliceChannel).
+        self.num_outputs = num_outputs
+        self.doc = doc or fn.__doc__ or ""
+        # needs_rng: fn takes a torch.Generator as FIRST positional input;
+        # ndarray.invoke injects it.
+        self.needs_rng = needs_rng
+        # takes_mode: fn has a keyword-only `_mode` param ('train'|'predict')
+        # that ndarray.invoke sets from autograd.is_training().
+        self.takes_mode = takes_mode
+        # visible_outputs: how many leading outputs the user API exposes;
+        # the rest are hidden aux-state outputs.
+        self.visible_outputs = visible_outputs
+        # aux_write: {output_index: input_index} — after a training-mode
+        # call, hidden output i must be written back into input j's array
+        # (reference: mutable aux_states, e.g. BatchNorm moving stats).
+        self.aux_write = dict(aux_write or {})
+        sig = inspect.signature(fn)
+        self.params = {
+            p.name: p.default
+            for p in sig.parameters.values()
+            if p.kind == inspect.Parameter.KEYWORD_ONLY and p.name != "_mode"
+        }
+        # ops with **kwargs (e.g. Custom forwarding params to the user's
+        # CustomOpProp) accept arbitrary extra params
+        self.allow_extra_params = any(
+            p.kind == inspect.Parameter.VAR_KEYWORD
+            for p in sig.parameters.values())
+        if input_names is None:
+            input_names = [
+                p.name for p in sig.parameters.values()
+                if p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                              inspect.Parameter.POSITIONAL_OR_KEYWORD)
+            ]
+            if needs_rng and input_names:
+                input_names = input_names[1:]  # hide the generator input
+        # names for keyword-style input passing (mxnet API style:
+        # Convolution(data=..., weight=..., bias=...))
+        self.input_names = tuple(input_names)
+
+    def out_arity(self, params):
+        if callable(self.num_outputs):
+            return self.num_outputs(params)
+        return self.num_outputs
+
+    def __repr__(self):
+        return "Op(%s)" % self.name
+
+
+def register(name=None, num_outputs=1, aliases=(), needs_rng=False,
+             takes_mode=False, visible_outputs=None, aux_write=None,
+             input_names=None):
+    """Register an op. Usable as decorator::
+
+        @register("relu")
+        def relu(x):
+            return jnp.maximum(x, 0)
+
+    Positional args of fn are input arrays; keyword-only args are static
+    params (become keyword args in the generated nd./sym. frontends).
+    """
+
+    def deco(fn, _name=name):
+        opname = _name or fn.__name__
+        op = Op(opname, fn, num_outputs=num_outputs, needs_rng=needs_rng,
+                takes_mode=takes_mode, visible_outputs=visible_outputs,
+                aux_write=aux_write, input_names=input_names)
+        if opname in _OPS:
+            raise MXNetError("op %r already registered" % opname)
+        _OPS[opname] = op
+        for alias in aliases:
+            if alias in _OPS:
+                raise MXNetError("op alias %r already registered" % alias)
+            _OPS[alias] = op
+        return fn
+
+    return deco
+
+
+def alias(existing, *names):
+    op = get(existing)
+    for n in names:
+        _OPS[n] = op
+    return op
+
+
+def get(name) -> Op:
+    try:
+        return _OPS[name]
+    except KeyError:
+        raise MXNetError("operator %r is not registered" % (name,)) from None
+
+
+def exists(name) -> bool:
+    return name in _OPS
+
+
+def list_ops():
+    return sorted(_OPS)
+
+
+def apply_defaults(op: Op, params: dict) -> dict:
+    """Validate params against the op signature, fill defaults."""
+    out = dict(op.params)
+    for k, v in params.items():
+        if k not in out:
+            # tolerate reference-style no-op params silently? No: raise, but
+            # allow the common codegen extras.
+            if k in ("name", "out", "ctx"):
+                continue
+            if op.allow_extra_params:
+                out[k] = v
+                continue
+            raise MXNetError("op %s: unknown param %r (valid: %s)"
+                             % (op.name, k, sorted(out)))
+        out[k] = v
+    missing = [k for k, v in out.items() if v is inspect.Parameter.empty]
+    if missing:
+        raise MXNetError("op %s: missing required params %s" % (op.name, missing))
+    return out
+
+
+def hashable_params(params: dict):
+    """Normalize params into a hashable form (a cache key)."""
+    def conv(v):
+        if isinstance(v, list):
+            return tuple(conv(x) for x in v)
+        if isinstance(v, dict):
+            return tuple(sorted((k, conv(x)) for k, x in v.items()))
+        return v
+    return tuple(sorted((k, conv(v)) for k, v in params.items()))

@@ -314,13 +314,17 @@ def cached_mxnet_plan(cache, key, ws, vs=None, weights=None):
     `weights`), kept in the dict `cache` under `key` together with the
     pointers of every tensor it writes, and built anew when they differ
     (after a cast, a move to another device, new optimizer states). The
-    plan holds its tensors, so no other live tensor can take one of their
-    addresses."""
+    plan holds aliases of its tensors (their storage, not the tensor
+    objects), so no other live tensor can take one of their addresses,
+    and a cache keyed weakly by one of the tensors drops the entry with
+    it."""
     ptrs = tuple(t.data_ptr() for t in [*ws, *(vs or ()), *(weights or ())])
     held = cache.get(key)
     if held is None or held[0] != ptrs:
-        held = cache[key] = (ptrs, SGDMomentumPlan(ws, vs, form="mxnet",
-                                                   weights=weights))
+        def alias(ts):
+            return None if ts is None else [t.detach() for t in ts]
+        held = cache[key] = (ptrs, SGDMomentumPlan(
+            alias(ws), alias(vs), form="mxnet", weights=alias(weights)))
     return held[1]
 
 

@@ -15,10 +15,12 @@ scheduler, and `_resolved_mult` (:192-205) reads
 ``wd_mult`` is 0. Multi-precision (:118-150) keeps an fp32 master of a
 bf16/fp16 weight and updates through it.
 
-SGD's rule is the hand-written kernel's MXNet form: on the card one
-parameter is one launch, through a plan kept per index; on the CPU its
-plain version, `ops.sgd_mxnet_plain`. `parallel.FusedUpdater` runs a
-whole group of SGD parameters through that kernel in one launch. Adam, AdaGrad
+SGD's rule is the hand-written kernel's MXNet form, through the
+`sgd_mom_update` op's own function (`ops.extra.sgd_mxnet_update`): on the
+card one parameter is one launch, through a plan kept while its weight
+lives; on the CPU its plain version, `ops.sgd_mxnet_plain`.
+`parallel.FusedUpdater` runs a whole group of SGD parameters through
+that kernel in one launch. Adam, AdaGrad
 and RMSProp are written over lists with `torch._foreach_*`, one function
 for a key and for a fused group, so the two paths compute alike.
 """
@@ -33,7 +35,7 @@ import torch
 from . import random as _random
 from .base import MXNetError
 from .observability import registry as _obs
-from .ops.sgd_momentum import cached_mxnet_plan, sgd_mxnet_plain
+from .ops.extra import sgd_mxnet_update
 
 __all__ = ["AdaDelta", "AdaGrad", "Adam", "Adamax", "DCASGD", "FTML",
            "Ftrl", "LBSGD", "NAG", "Nadam", "Optimizer", "RMSProp", "SGD",
@@ -233,13 +235,6 @@ class SGD(Optimizer):
         super().__init__(**kwargs)
         self.momentum = momentum
         self.lazy_update = lazy_update
-        # index -> (pointers, one-tensor plan) of the updates on the card
-        self._plans = {}
-
-    def __getstate__(self):
-        d = super().__getstate__()
-        d["_plans"] = {}     # plans hold device tensors
-        return d
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -247,20 +242,12 @@ class SGD(Optimizer):
         return _zeros(weight)
 
     def update(self, index, weight, grad, state):
+        """The `sgd_update`/`sgd_mom_update` op's function, in place."""
         self._update_count(index)
-        lr = self._get_lr(index)
-        wd = self._get_wd(index)
-        if weight.device.type != "cpu":
-            cached_mxnet_plan(self._plans, index, [weight],
-                              None if state is None else [state])(
-                [grad.contiguous()], lr, self.momentum, wd,
-                self.rescale_grad, self.clip_gradient)
-            return
-        w, v = sgd_mxnet_plain(weight, grad, state, lr, self.momentum, wd,
-                               self.rescale_grad, self.clip_gradient)
-        _assign(weight, w)
-        if state is not None and v is not None:
-            _assign(state, v)
+        sgd_mxnet_update(weight, grad, state, None, weight,
+                         self._get_lr(index), self.momentum,
+                         self._get_wd(index), self.rescale_grad,
+                         self.clip_gradient)
 
 
 @register
@@ -739,6 +726,13 @@ class Updater:
         return self.states[index]
 
     def __call__(self, index, grad, weight):
+        """Update `weight` in place from `grad` (tensors, or NDArrays,
+        whose tensors are updated)."""
+        from .ndarray import NDArray
+        if isinstance(grad, NDArray):
+            grad = grad._data
+        if isinstance(weight, NDArray):
+            weight = weight._data
         state = self._state_of(index, weight)
         _UPDATE_DISPATCHES.inc()
         with torch.no_grad():

@@ -29,6 +29,7 @@ from torch.func import functional_call
 from .. import autograd
 from ..base import MXNetError
 from ..context import resolve_device
+from ..ndarray import NDArray
 from ..gluon.block import collect_params
 from ..ops import SGDMomentumPlan
 from ..resilience import numerics as _num
@@ -110,7 +111,7 @@ class ShardedTrainer:
         cd = self._cd
         if cd is not None:
             data = [x.to(cd) if x.is_floating_point() else x for x in data]
-        with torch.enable_grad(), autograd.train_mode():
+        with autograd.record():
             leaves = [p.detach().requires_grad_(True)
                       for p in self._params.values()]
             state = {self._paths[n]: (v.to(cd) if cd is not None and
@@ -118,7 +119,10 @@ class ShardedTrainer:
                      for n, v in zip(self._params, leaves)}
             state.update({self._paths[n]: v for n, v in aux.items()})
             outs = functional_call(self._net, state, tuple(data))
-            loss = self._loss(outs, *labels).float().mean()
+            loss = self._loss(outs, *labels)
+            if isinstance(loss, NDArray):   # a loss records as an NDArray
+                loss = loss._data
+            loss = loss.float().mean()
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), [g.contiguous() for g in grads]
 

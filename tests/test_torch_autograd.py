@@ -18,7 +18,8 @@ import torch
 
 import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo.vision import resnet as jresnet
-from mxnet_tpu_torch import MXNetError, autograd, gluon
+from mxnet_tpu_torch import MXNetError, autograd, gluon, nd
+from mxnet_tpu_torch import cpu as mx_torch_cpu
 from mxnet_tpu_torch.convert import gluon_params_from_jax
 from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.gluon.nn import conv_layers
@@ -202,11 +203,39 @@ def test_null_grad_req_has_no_gradient_and_backward_leaves_it():
 
 
 def test_backward_of_an_unrecorded_output_raises():
+    """A loss computed outside record() is not in the graph: its backward
+    raises MXNetError with the JAX package's words, for the per-sample
+    loss and for its mean (no torch.no_grad() anywhere)."""
+    jd, td = _dense_pair()
+    x = np.ones((2, 4), np.float32)
+    y = np.zeros(2, np.float32)
+    for head in ("vector", "mean"):
+        jl, tl = _loss_pair()
+        jloss = jl(jd(mx.nd.array(x)), mx.nd.array(y))
+        tloss = tl(td(torch.from_numpy(x)), torch.from_numpy(y))
+        if head == "mean":
+            jloss, tloss = jloss.mean(), tloss.mean()
+        with pytest.raises(mx.base.MXNetError) as jerr:
+            jloss.backward()
+        with pytest.raises(MXNetError) as terr:
+            autograd.backward(tloss)
+        assert str(terr.value) == str(jerr.value), head
+        assert "not in the recorded graph" in str(terr.value)
+        assert not td.collect_params()["weight"]._fresh_grad
+
+
+def test_predict_mode_forward_builds_no_graph():
+    """net(x) outside record() gives an output that requires no grad, for
+    tensor and NDArray inputs, whatever torch's own grad mode says."""
     _, td = _dense_pair()
-    with torch.no_grad():
-        out = td(torch.ones(2, 4)).as_subclass(NDArray)
-    with pytest.raises(MXNetError, match="recorded"):
-        out.backward()
+    assert torch.is_grad_enabled()
+    out = td(torch.ones(2, 4))
+    assert type(out) is torch.Tensor and not out.requires_grad
+    with mx_torch_cpu():
+        nd_out = td(nd.ones((2, 4)))
+    assert isinstance(nd_out, NDArray) and not nd_out._data.requires_grad
+    with autograd.record():
+        assert td(torch.ones(2, 4)).requires_grad
 
 
 def test_head_gradient_seeds_the_backward_and_zero_grad_is_not_fresh():

@@ -141,6 +141,30 @@ def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
                                          torch.tensor([0.0, 1.0]))
     loss.backward()
     trainer.step(2)
-    assert loss.device.type == "cpu" and np.isfinite(loss.asnumpy()).all()
+    assert loss.context == mx.cpu() and np.isfinite(loss.asnumpy()).all()
     with pytest.raises(MXNetError, match="not ported"):
         mx.kvstore.create("dist_sync")
+
+
+def test_nd_default_context_is_the_card_and_raises_without_one(monkeypatch):
+    """mx.nd's default context is gpu(0): without a card, creating an
+    array with no ctx raises DeviceUnreachable (no quiet CPU fallback);
+    `with mx.cpu():` or ctx=mx.cpu() selects the CPU."""
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mx.current_context() == mx.gpu(0)
+    for make in (lambda: mx.nd.array([1.0, 2.0]),
+                 lambda: mx.nd.zeros((2, 2)),
+                 lambda: mx.nd.random.uniform(shape=(2,)),
+                 lambda: mx.nd.arange(3)):
+        with pytest.raises(DeviceUnreachable):
+            make()
+    with pytest.raises(DeviceUnreachable):
+        mx.gpu(0).torch_device
+    a = mx.nd.array([1.0, 2.0], ctx=mx.cpu())
+    assert a.context == mx.cpu()
+    with mx.cpu():
+        assert mx.current_context() == mx.cpu()
+        b = mx.nd.ones((2,)) + a
+        assert b.context == mx.cpu() and b.asnumpy().tolist() == [2.0, 3.0]
+    assert mx.current_context() == mx.gpu(0)

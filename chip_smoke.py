@@ -99,6 +99,31 @@ Phases; any failure exits non-zero before the final line:
              invoke, the kernels at these call sites, and backward's host
              ms with a ResNet-50's parameters alive as well.
 
+14. gluon_cifar — example/gluon/train_cifar10.py as published, through
+             its port copy tools/torch_train_cifar10.py (imports
+             swapped): resnet18_v1, NCHW fp32, SGD lr 0.1 momentum 0.9
+             wd 1e-4, batch 128, 2 epochs over 2048 synthetic images (32
+             steps). The script's own assert, one fused_sgd_momentum
+             launch a step in MXNet's form, and a shuffled DataLoader's
+             batches at 2 workers equal to those at 0 under one seed;
+             img/s, step ms, peak memory.
+15. zoo_train — get_model("mobilenet1.0", layout="NHWC") at 224x224,
+             batch 128, net.cast("bfloat16"), multi_precision SGD (the
+             gluon_train recipe), batches from a seeded ArrayDataset
+             through DataLoader(num_workers=4, pin_memory=True): 1 warm
+             and 10 timed steps, finite falling losses, 13
+             conv1x1_bn_stats launches a forward and one SGD launch a
+             step; a narrow twin (mobilenet0.25, 64 px, batch 4, fp32, 2
+             steps) card against CPU; the kernel held against its plain
+             version and timed at MobileNet's 13 pointwise calls; img/s,
+             step ms, host against device ms, device ms by class.
+16. gluon_layers — every gluon.nn class of the port (both layouts
+             where they exist) and every loss, forward and backward,
+             card against CPU; gluon.nn.LayerNorm at (8192, 768) fp32,
+             one layer_norm launch a forward, held against the plain
+             version and timed; one forward of each zoo family's
+             smallest member (Inception V3 at 299 px), card against CPU.
+
 The kernel phase also holds the SGD kernel's MXNet form (the update of
 Gluon's SGD) against its plain version over ResNet-50's tensor list, in
 fp32 and in multi-precision bf16 with clipping, over 3 calls with a new
@@ -325,7 +350,7 @@ def profiled(fn, n):
     return {k: us for k, (us, _) in device_events(fn, n).items()}
 
 
-def kernel_device_ms(fn, kernel, n=10, launches=1, tries=3):
+def kernel_device_ms(fn, kernel, n=10, launches=1, tries=10):
     """Device milliseconds per call of fn() in the kernels whose names
     contain `kernel` (a string or a tuple of strings), each call making
     `launches` launches of them. The profiler can drop records of a
@@ -376,10 +401,22 @@ def breakdown(dev_us, n, host_ms, top_n=6):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def device_ms(fn, n=10):
+def device_ms(fn, n=10, tries=10):
     """Device milliseconds per call of fn(), every kernel and copy it
-    runs (a library call's yardstick)."""
-    return sum(us for us, _ in device_events(fn, n).values()) / n / 1e3
+    runs (a library call's yardstick). The profiler can drop records, so
+    a profile counts only when its launches are a whole number per call
+    and another profile saw as many; None when no two agree."""
+    counts = set()
+    for _ in range(tries):
+        events = device_events(fn, n).values()
+        count = sum(c for _, c in events)
+        if count and count % n == 0:
+            if count in counts:
+                return sum(us for us, _ in events) / n / 1e3
+            counts.add(count)
+        print("chip_smoke: the profiler saw %d launches over %d calls"
+              % (count, n), file=sys.stderr, flush=True)
+    return None
 
 
 def check_flash(ops, dev, T, dtype, gen, strided=False, causal=True,
@@ -749,20 +786,43 @@ def resnet50_conv1x1_calls(batch=BATCH):
     return calls
 
 
-def conv1x1_per_forward(ops, dev, gen, card):
-    """conv1x1_bn_stats at each shape of one ResNet-50 b128 training
-    forward, in bf16 with the weight as a transposed view, checked and
-    timed shape by shape, in turns with `matmul` + `var_mean` (each row
-    emitted), and summed over the forward's 36 calls."""
-    calls = resnet50_conv1x1_calls()
+def mobilenet_conv1x1_calls(batch=BATCH, img=IMG):
+    """{(M, Cin, Cout): calls} of conv1x1_bn_stats in one MobileNet-1.0
+    training forward at `batch` (img x img, NHWC): the pointwise
+    convolution of each of the 13 depthwise-separable blocks
+    (mobilenet.py: channels and strides)."""
+    dw = [32, 64] + [128] * 2 + [256] * 2 + [512] * 6 + [1024]
+    pw = [64] + [128] * 2 + [256] * 2 + [512] * 6 + [1024] * 2
+    strides = [1, 2] * 3 + [1] * 5 + [2, 1]
+    side = img // 2
+    calls = {}
+    for cin, cout, s in zip(dw, pw, strides):
+        side = -(-side // s)
+        shape = (batch * side * side, cin, cout)
+        calls[shape] = calls.get(shape, 0) + 1
+    assert sum(calls.values()) == 13
+    return calls
+
+
+def conv1x1_per_forward(ops, dev, gen, card, calls=None,
+                        phase="kernel_main_shape",
+                        expect="conv1x1_wgmma_kernel"):
+    """conv1x1_bn_stats at each shape of one training forward (ResNet-50
+    b128 unless `calls` says otherwise), in bf16 with the weight as a
+    transposed view, checked and timed shape by shape, in turns with
+    `matmul` + `var_mean` (each row emitted), and summed over the
+    forward's calls. `expect`: the kernel the profiler must see at every
+    shape."""
+    calls = calls or resnet50_conv1x1_calls()
     per = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                library_device_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
-               err=0.0, shapes=len(calls))
+               err=0.0, shapes=len(calls), calls=sum(calls.values()),
+               kernels=set())
     for (M, cin, cout), n in calls.items():
         # the weight as the train path passes it: a (Cout, Cin) transposed
         r = check_conv1x1(ops, dev, M, cin, cout, torch.bfloat16, gen, "t",
-                          expect="conv1x1_wgmma_kernel")
-        emit(phase="kernel_main_shape", card=card, calls_per_forward=n, **r)
+                          expect=expect)
+        emit(phase=phase, card=card, calls_per_forward=n, **r)
         for key, src in (("ms", "kernel_ms"), ("device_ms", "device_ms"),
                          ("plain_ms", "plain_ms"),
                          ("library_ms", "library_ms"),
@@ -774,6 +834,8 @@ def conv1x1_per_forward(ops, dev, gen, card):
         per["t_bytes"] += n * r["bytes"] / HBM_BYTES_S
         per["t_ops"] += n * r["flops"] / BF16_FLOP_S
         per["err"] = max(per["err"], r["max_abs_err"])
+        per["kernels"] |= set(r["kernels"])
+    per["kernels"] = sorted(per["kernels"])
     return per
 
 
@@ -933,7 +995,10 @@ def train_small(dev):
                             device=where)
         ops.reset_launch_counts()
         losses = [float(st.step(x, y)) for _ in range(3)]
-        runs[where.type] = (losses, st.params, ops.launch_counts())
+        # the two nets' top-level prefixes differ: names below them agree
+        runs[where.type] = (losses, {k[len(net.prefix):]: v for k, v in
+                                     st.params.items()},
+                            ops.launch_counts())
     (lc, pc, nc), (lh, ph, nh) = runs["cuda"], runs["cpu"]
     loss_err = max(abs(a - b) for a, b in zip(lc, lh))
     param_err = max((pc[k].cpu() - ph[k]).abs().max().item() for k in ph)
@@ -1088,7 +1153,8 @@ def gluon_small(dev):
         ops.reset_launch_counts()
         losses = [float(gluon_loop(net, trainer, loss_fn, x.to(where),
                                    y.to(where))) for _ in range(3)]
-        runs[where.type] = (losses, {k: p.data().detach().cpu() for k, p in
+        runs[where.type] = (losses, {k[len(net.prefix):]:
+                                     p.data().detach().cpu() for k, p in
                                      net.collect_params().items()},
                             ops.launch_counts(), trainer.learning_rate)
     (lc, pc, nc, lrc), (lh, ph, nh, lrh) = runs["cuda"], runs["cpu"]
@@ -1458,10 +1524,15 @@ def nd_flash(ops, dev, card, gen):
                 fwd, "flash_fwd_kernel"),
             fwd_plain_ms=cuda_ms(lambda: ops.attention_plain(
                 q, k, v, causal=True), iters=10),
-            fwd_library_ms=sdpa_fwd_ms, fwd_bwd_ms=fb_ms,
+            fwd_library_ms=sdpa_fwd_ms,
+            fwd_library_device_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True)),
+            fwd_bwd_ms=fb_ms,
             fwd_bwd_device_ms=device_ms(op_fwd_bwd, n=3),
             fwd_bwd_plain_ms=cuda_ms(plain_fwd_bwd, iters=5),
             fwd_bwd_library_ms=sdpa_fb_ms,
+            fwd_bwd_library_device_ms=device_ms(sdpa_fwd_bwd, n=3),
             fwd_bound=bound(4 * B * H * T * D * elem, mult * flops, peak),
             fwd_bwd_bound=bound(8 * B * H * T * D * elem, mult * fb_flops,
                                 peak)))
@@ -1748,6 +1819,642 @@ def nd_gpt(ops, dev, card, gen):
     return dict(launches=launches, ln_row=ln_row, sgd_row=sgd_row)
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: Gluon breadth
+# ---------------------------------------------------------------------------
+CIFAR_SCRIPT = os.path.join("tools", "torch_train_cifar10.py")
+CIFAR_STEPS = 32                # 2 epochs of 2048 images at batch 128
+ZOO = dict(model="mobilenet1.0", workers=4, warm=1)
+ZOO_TWIN = dict(model="mobilenet0.25", batch=16, img=128, steps=2,
+                lr=1e-3)
+
+
+def _load_script(path):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_cifar10", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def loader_batches(loader):
+    return [[b.astorch().clone() for b in batch] for batch in loader]
+
+
+def gluon_cifar(ops, dev, card):
+    """example/gluon/train_cifar10.py as published, through its port copy
+    (tools/torch_train_cifar10.py: the imports are the only change), on
+    the card: resnet18_v1, SGD lr 0.1 momentum 0.9 wd 1e-4, batch 128,
+    2 epochs over the 2048 synthetic images. The script's own assert,
+    one MXNet-form fused_sgd_momentum launch a step, and batches of a
+    shuffled DataLoader at 2 workers equal to those at 0 under one seed.
+    Returns the launch counts of the script's run."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    script = _load_script(CIFAR_SCRIPT)
+    stamps = []
+    real_step = Trainer.step
+
+    def stamped(self, *args, **kwargs):
+        real_step(self, *args, **kwargs)
+        stamps.append(time.perf_counter())
+
+    out = io.StringIO()
+    argv = sys.argv
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.argv = [CIFAR_SCRIPT, "--data-dir", os.path.join(tmp, "none")]
+        Trainer.step = stamped
+        torch.cuda.reset_peak_memory_stats()
+        # the main path, with every launch counter at 0 just before it
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                script.main()
+        except AssertionError as e:
+            fail("gluon_cifar: the example's assert failed: %s\n%s"
+                 % (e, out.getvalue()))
+        finally:
+            Trainer.step = real_step
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lines = out.getvalue().splitlines()
+    if lines[-1:] != ["CIFAR_EXAMPLE_OK"] or len(stamps) != CIFAR_STEPS:
+        fail("gluon_cifar: %d steps, output %s" % (len(stamps), lines))
+    if launches["fused_sgd_momentum"] != CIFAR_STEPS or \
+            launches["conv1x1_bn_stats"]:
+        fail("gluon_cifar: launches %s over %d steps, want one "
+             "fused_sgd_momentum a step and no conv1x1 (NCHW)"
+             % (launches, CIFAR_STEPS))
+    gaps = np.diff(stamps)
+    steady = stamps[-1] - stamps[0]
+    # the update is MXNet's form of the SGD kernel
+    mx.random.seed(0)
+    net = get_model("resnet18_v1", classes=10)
+    net.initialize(mx.init.Xavier())
+    trainer = Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x = torch.randn(128, 3, 32, 32, device=dev)
+    y = torch.randint(0, 10, (128,), device=dev).float()
+    sgd = kernels_seen(lambda: gluon_loop(net, trainer, loss_fn, x, y),
+                       "sgd_momentum_kernel", "MXNetForm")
+    if not any("MXNetForm" in k for k in sgd):
+        fail("gluon_cifar: the step's SGD kernels were %s, want "
+             "sgd_momentum_kernel<MXNetForm>" % sgd)
+    # batches of a shuffled DataLoader: 2 workers against none
+    rng = np.random.RandomState(0)
+    data = ArrayDataset(rng.randn(2048, 3, 32, 32).astype("float32"),
+                        rng.randint(0, 10, 2048).astype("float32"))
+    got = {}
+    for workers in (0, 2):
+        loader = DataLoader(data, batch_size=128, shuffle=True,
+                            last_batch="discard", num_workers=workers)
+        np.random.seed(7)
+        got[workers] = loader_batches(loader)
+        del loader
+    gc.collect()
+    same = len(got[0]) == len(got[2]) == 16 and all(
+        torch.equal(a, b) for ba, bb in zip(got[0], got[2])
+        for a, b in zip(ba, bb))
+    on_card = all(b.device.type == "cuda" for batch in got[2] for b in batch)
+    if not (same and on_card):
+        fail("gluon_cifar: DataLoader batches at 2 workers equal to 0 "
+             "workers: %s, on the card: %s" % (same, on_card))
+    emit(phase="gluon_cifar", card=card, script=CIFAR_SCRIPT,
+         model="resnet18_v1, NCHW, fp32, Xavier", batch=128,
+         steps=len(stamps), output=lines, wall_s=wall,
+         img_s=128 * (len(stamps) - 1) / steady,
+         step_ms=float(np.median(gaps)) * 1e3,
+         step_ms_p90=percentile(gaps, 90) * 1e3, peak_mem_gb=peak_gb,
+         launches=launches, sgd_kernels=[k[:120] for k in sgd],
+         loader_workers_2_equal_0=same)
+    return launches
+
+
+def loader_fp32(n_batches=4):
+    """The DataLoader alone as a Gluon user feeds ImageNet-sized images:
+    uint8 HWC NDArrays on the CPU through `transform_first(ToTensor,
+    Normalize)` in 4 workers, which pickle fp32 CHW batches of BATCH to
+    the parent, pinned and copied to the card. Returns (img/s over
+    `n_batches` after a first one, the first batch's ms)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+    rng = np.random.default_rng(1)
+    n = 2 * BATCH
+    data = ArrayDataset(
+        mx.nd.array(rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8),
+                    ctx=mx.cpu(), dtype="uint8"),
+        (rng.random(n) * 1000).astype("float32"))
+    tf = transforms.Compose([
+        transforms.ToTensor(),
+        transforms.Normalize((0.485, 0.456, 0.406), (0.229, 0.224, 0.225))])
+    draws = [rng.permutation(n)[:BATCH].tolist()
+             for _ in range(n_batches + 1)]
+    loader = DataLoader(data.transform_first(tf), batch_sampler=draws,
+                        num_workers=ZOO["workers"], pin_memory=True)
+    t0 = time.perf_counter()
+    feed = iter(loader)
+    first = next(feed)[0]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for xb, _ in feed:
+        if xb.shape != first.shape or xb.dtype != np.float32:
+            fail("zoo_train: the fp32 loader gave %s %s, want %s float32"
+                 % (xb.shape, xb.dtype, first.shape))
+    torch.cuda.synchronize()
+    return BATCH * n_batches / (time.perf_counter() - t1), (t1 - t0) * 1e3
+
+
+def zoo_train(ops, dev, card, gen):
+    """MobileNet-1.0 (get_model, NHWC) trained at 224x224, batch 128,
+    with the gluon_train recipe: net.cast("bfloat16"), multi_precision
+    SGD lr 0.1 momentum 0.9 wd 1e-4; batches from a seeded synthetic
+    ArrayDataset through DataLoader(num_workers=4, pin_memory=True). 1
+    warm-up and 10 timed steps: finite, falling losses, 13
+    conv1x1_bn_stats launches a forward, one SGD launch a step; the
+    kernel at MobileNet's 9 pointwise shapes (13 calls) held against its
+    plain version and timed; a narrow twin card against CPU. The images
+    are uint8, cast to bf16 on the card. Returns (launches, the
+    per-forward conv1x1 sums)."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from mxnet_tpu_torch.observability import registry
+    zoo_twin(ops, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx.random.seed(0)
+    net = get_model(ZOO["model"], layout="NHWC")
+    net.initialize()            # Gluon's default: Uniform(0.07)
+    net.cast("bfloat16")
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+        "multi_precision": True})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    # uint8 HWC images, as decoded image data is, 2 batches' worth; one
+    # pass of the batch sampler draws every step of the phase (warm,
+    # timed, the one-step timing and the profile) from them, so the
+    # loader's pipeline never restarts and the net can fit the labels
+    rng = np.random.default_rng(0)
+    n = 2 * BATCH
+    data = ArrayDataset(rng.integers(0, 256, (n, IMG, IMG, 3), np.uint8),
+                        (rng.random(n) * 1000).astype("float32"))
+    draws = [rng.permutation(n)[:BATCH].tolist()
+             for _ in range(ZOO["warm"] + TRAIN_STEPS + 2)]
+    loader = DataLoader(data, batch_sampler=draws,
+                        num_workers=ZOO["workers"], pin_memory=True)
+    feed = iter(loader)
+    waits = []
+
+    def step():
+        t = time.perf_counter()
+        xb, yb = next(feed)
+        waits.append(time.perf_counter() - t)
+        with autograd.record():
+            loss = loss_fn(net(xb.astype("bfloat16") * (1.0 / 255)), yb)
+        loss.backward()
+        trainer.step(BATCH)
+        return loss.astorch().detach().float().mean()
+
+    warm = torch.stack([step() for _ in range(ZOO["warm"])]).cpu().numpy()
+    setup_s = time.perf_counter() - t0
+    del waits[:]
+    groups = registry.counter("optimizer.fused.groups")
+    groups0 = groups.get()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, with every launch counter at 0 just before it
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = torch.stack([step() for _ in range(TRAIN_STEPS)]).cpu().numpy()
+    wall = time.perf_counter() - t0
+    loader_wait_ms = sum(waits) / len(waits) * 1e3
+    launches = ops.launch_counts()
+    sgd_groups = groups.get() - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not (np.isfinite(warm).all() and np.isfinite(losses).all()):
+        fail("zoo_train: non-finite loss: warm %s, timed %s"
+             % (warm, losses))
+    if not losses[-1] < warm[0]:
+        fail("zoo_train: loss did not fall: first %g, last %g"
+             % (warm[0], losses[-1]))
+    if launches["conv1x1_bn_stats"] != 13 * TRAIN_STEPS or \
+            launches["fused_sgd_momentum"] != sgd_groups or \
+            sgd_groups != TRAIN_STEPS:
+        fail("zoo_train: launches %s and %d SGD groups over %d steps, "
+             "want 13 conv1x1_bn_stats a step and one fused_sgd_momentum "
+             "launch a step" % (launches, sgd_groups, TRAIN_STEPS))
+    # where one step's time goes
+    t = time.perf_counter()
+    step().cpu()
+    one_step_ms = (time.perf_counter() - t) * 1e3
+    events = device_events(lambda: step().cpu(), 1)
+    dev_us = {k: us for k, (us, _) in events.items()}
+    profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
+    profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+    profile["conv1x1_kernels"] = {k[:90]: c for k, (_, c) in events.items()
+                                  if "conv1x1_" in k}
+    del feed, loader, data
+    gc.collect()
+    n_params = sum(p.data().numel() for p in net.collect_params().values()
+                   if p.grad_req != "null")
+    img_s = BATCH * TRAIN_STEPS / wall
+    fp32_img_s, fp32_first_ms = loader_fp32()
+    emit(phase="zoo_train", card=card, model="%s, NHWC, seeded random "
+         "weights (net.initialize(): Uniform 0.07)" % ZOO["model"],
+         params=n_params, batch=BATCH, image=IMG,
+         dtype="net.cast(bfloat16), multi_precision (fp32 masters)",
+         loader="ArrayDataset of %d seeded uint8 images, DataLoader("
+         "num_workers=%d, pin_memory=True), a seeded batch sampler of %d "
+         "batches; cast to bf16 / 255 on the card"
+         % (n, ZOO["workers"], len(draws)),
+         loader_wait_ms_per_step=loader_wait_ms,
+         loader_alone_fp32_img_s=fp32_img_s,
+         loader_alone_fp32_first_batch_ms=fp32_first_ms,
+         loader_alone_fp32="uint8 NDArrays on the CPU, transform_first("
+         "ToTensor, Normalize) in %d workers, fp32 CHW batches pickled, "
+         "pinned, to the card" % ZOO["workers"],
+         steps=TRAIN_STEPS, warm_steps=ZOO["warm"], img_s=img_s,
+         step_ms=wall / TRAIN_STEPS * 1e3, wall_s=wall, peak_mem_gb=peak_gb,
+         setup_s=setup_s, losses_warm=warm.tolist(), losses=losses.tolist(),
+         launches=launches, sgd_groups=sgd_groups, profile_one_step=profile)
+    # the kernel at the pointwise shapes of this forward
+    per = conv1x1_per_forward(ops, dev, gen, card,
+                              mobilenet_conv1x1_calls(BATCH, IMG),
+                              phase="kernel_mobilenet_shape")
+    # the kernel's device time inside the profiled training step, where
+    # the profiler saw the forward's 13 launches
+    seen = sum(profile["conv1x1_kernels"].values())
+    per["device_ms_in_step"] = profile["device_ms_by_kind"].get(
+        "conv1x1_bn_stats") if seen == 13 else None
+    return launches, per
+
+
+def zoo_twin(ops, dev):
+    """mobilenet0.25 at 128x128, batch 16, fp32, 2 SGD steps (lr 1e-3,
+    momentum 0.9, wd 1e-4) through gluon.Trainer on the card and on the
+    CPU from the same seeded weights, each step from the same state:
+    before step 2 the CPU net and trainer load the card's parameters and
+    optimizer states (`save_parameters`, `save_states`). Losses within
+    1e-4 and weights within 1e-3 after each step.
+
+    Why this size, lr and per-step state (PERF.md section 6, and
+    tools/torch_twin_probe.py): a ReLU input within the forward's fp32
+    rounding of 0 lands on the other side on the card, a step-sized
+    change of one gradient element that its BatchNorm spreads over the
+    channel. At lr 0.1 the first update is up to 68x a weight, so one
+    such element moves the first step's weights by 0.04 and the second
+    step runs from another state. In float64 the card and the CPU agree
+    to 1e-15 over both steps."""
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    c = ZOO_TWIN
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(c["batch"], c["img"], c["img"], 3)
+                         .astype(np.float32))
+    y = torch.from_numpy(rng.randint(0, 10, c["batch"]).astype(np.float32))
+    sides = []
+    for ctx in (mx.gpu(0), mx.cpu()):
+        with ctx:
+            mx.random.seed(3)
+            net = get_model(c["model"], classes=10, layout="NHWC")
+            net.initialize(mx.init.Xavier())
+            net(x[:1].to(ctx.torch_device))   # deferred shapes: draw now
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+                "learning_rate": c["lr"], "momentum": 0.9, "wd": 1e-4})
+            sides.append((ctx, net, trainer, x.to(ctx.torch_device),
+                          y.to(ctx.torch_device)))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    (_, cnet, ctrainer, _, _), (_, hnet, htrainer, _, _) = sides
+
+    def weights(net):
+        return {k: p.data().detach().float().cpu().clone()
+                for k, p in net._collect_params_with_prefix().items()}
+
+    ops.reset_launch_counts()
+    lc, lh, loss_err, param_err = [], [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for k in range(c["steps"]):
+            if k:
+                cnet.save_parameters(os.path.join(tmp, "p"))
+                ctrainer.save_states(os.path.join(tmp, "s"))
+                with mx.cpu():
+                    hnet.load_parameters(os.path.join(tmp, "p"),
+                                         ctx=mx.cpu())
+                    htrainer.load_states(os.path.join(tmp, "s"))
+            losses = []
+            for ctx, net, trainer, xs, ys in sides:
+                with ctx:
+                    losses.append(float(gluon_loop(net, trainer, loss_fn,
+                                                   xs, ys)))
+            lc.append(losses[0])
+            lh.append(losses[1])
+            wc, wh = weights(cnet), weights(hnet)
+            loss_err.append(abs(lc[-1] - lh[-1]))
+            param_err.append(max((wc[n] - wh[n]).abs().max().item()
+                                 for n in wh))
+    launches = ops.launch_counts()
+    loss_tol, param_tol = 1e-4, 1e-3
+    if not np.isfinite(lc).all() or max(loss_err) > loss_tol or \
+            max(param_err) > param_tol:
+        fail("zoo_train twin: card vs CPU losses %s vs %s (max abs err by "
+             "step %s, tolerance %g), max weight err by step %s "
+             "(tolerance %g)" % (lc, lh, loss_err, loss_tol, param_err,
+                                 param_tol))
+    if launches["conv1x1_bn_stats"] != 13 * c["steps"] or \
+            launches["fused_sgd_momentum"] != c["steps"]:
+        fail("zoo_train twin: launches %s over %d card steps, want 13 "
+             "conv1x1_bn_stats and one fused_sgd_momentum a step, none "
+             "on the CPU" % (launches, c["steps"]))
+    emit(phase="zoo_twin", config=c, losses_card=lc, losses_cpu=lh,
+         loss_max_abs_err=loss_err, param_max_abs_err=param_err,
+         loss_tol=loss_tol, param_tol=param_tol, launches=launches)
+
+
+def _layer_cases(g):
+    """(name, constructor, input shape, recorded?) of the layer sweep:
+    every gluon.nn class of the port, both layouts where they exist."""
+    def stack(cls):
+        net = cls()
+        with net.name_scope():
+            net.add(g.nn.Dense(6, activation="relu"), g.nn.Dense(3))
+        return net
+
+    def conv_bn():
+        net = g.nn.HybridSequential()
+        with net.name_scope():
+            net.add(g.nn.Conv2D(5, 1, layout="NHWC"),
+                    g.nn.BatchNorm(axis=3), g.nn.Activation("relu"))
+        return net
+
+    return [
+        ("Dense", lambda: g.nn.Dense(5, activation="tanh"), (4, 3, 2)),
+        ("Dense_no_flatten", lambda: g.nn.Dense(5, flatten=False),
+         (2, 3, 4)),
+        ("Activation", lambda: g.nn.Activation("softrelu"), (3, 5)),
+        ("BatchNorm", lambda: g.nn.BatchNorm(), (4, 3, 5, 5)),
+        ("BatchNorm_nhwc", lambda: g.nn.BatchNorm(axis=3), (2, 3, 3, 4)),
+        ("Embedding", lambda: g.nn.Embedding(10, 4), "indices"),
+        ("InstanceNorm", lambda: g.nn.InstanceNorm(scale=True),
+         (2, 3, 5, 4)),
+        ("LayerNorm", lambda: g.nn.LayerNorm(), (4, 64)),
+        ("Flatten", lambda: g.nn.Flatten(), (2, 3, 4)),
+        ("LeakyReLU", lambda: g.nn.LeakyReLU(0.1), (3, 5)),
+        ("PReLU", lambda: g.nn.PReLU(), (3, 5)),
+        ("ELU", lambda: g.nn.ELU(0.7), (3, 5)),
+        ("SELU", lambda: g.nn.SELU(), (3, 5)),
+        ("Swish", lambda: g.nn.Swish(1.5), (3, 5)),
+        ("GELU", lambda: g.nn.GELU(), (3, 5)),
+        ("Conv1D", lambda: g.nn.Conv1D(4, 3, strides=2, padding=1),
+         (2, 3, 9)),
+        ("Conv2D", lambda: g.nn.Conv2D(4, 3, padding=1), (2, 3, 6, 6)),
+        ("Conv2D_nhwc", lambda: g.nn.Conv2D(4, 3, padding=1, groups=2,
+                                            layout="NHWC"), (2, 5, 5, 4)),
+        ("Conv3D", lambda: g.nn.Conv3D(3, 2), (1, 2, 4, 4, 4)),
+        ("Conv3D_ndhwc", lambda: g.nn.Conv3D(3, 2, layout="NDHWC"),
+         (1, 4, 4, 4, 2)),
+        ("Conv1DTranspose", lambda: g.nn.Conv1DTranspose(
+            3, 3, strides=2, padding=1, output_padding=1), (2, 2, 5)),
+        ("Conv2DTranspose", lambda: g.nn.Conv2DTranspose(3, 3, strides=2),
+         (1, 2, 4, 4)),
+        ("Conv3DTranspose", lambda: g.nn.Conv3DTranspose(2, 2),
+         (1, 2, 3, 3, 3)),
+        ("MaxPool1D", lambda: g.nn.MaxPool1D(3, 2, ceil_mode=True),
+         (2, 3, 8)),
+        ("MaxPool2D", lambda: g.nn.MaxPool2D(3, 2, 1), (1, 2, 6, 6)),
+        ("MaxPool2D_nhwc", lambda: g.nn.MaxPool2D(3, 2, ceil_mode=True,
+                                                  layout="NHWC"),
+         (1, 6, 6, 2)),
+        ("MaxPool3D", lambda: g.nn.MaxPool3D(2, layout="NDHWC"),
+         (1, 4, 4, 4, 2)),
+        ("AvgPool1D", lambda: g.nn.AvgPool1D(3, 1, 1,
+                                             count_include_pad=False),
+         (2, 3, 7)),
+        ("AvgPool2D", lambda: g.nn.AvgPool2D(2, layout="NHWC"),
+         (1, 4, 4, 3)),
+        ("AvgPool3D", lambda: g.nn.AvgPool3D(2, ceil_mode=True),
+         (1, 2, 5, 5, 5)),
+        ("GlobalMaxPool1D", lambda: g.nn.GlobalMaxPool1D(), (2, 3, 7)),
+        ("GlobalMaxPool2D", lambda: g.nn.GlobalMaxPool2D(layout="NHWC"),
+         (2, 4, 4, 3)),
+        ("GlobalMaxPool3D", lambda: g.nn.GlobalMaxPool3D(),
+         (1, 2, 3, 3, 3)),
+        ("GlobalAvgPool1D", lambda: g.nn.GlobalAvgPool1D(), (2, 3, 7)),
+        ("GlobalAvgPool2D", lambda: g.nn.GlobalAvgPool2D(), (2, 3, 4, 4)),
+        ("GlobalAvgPool3D", lambda: g.nn.GlobalAvgPool3D(layout="NDHWC"),
+         (1, 3, 3, 3, 2)),
+        ("ReflectionPad2D", lambda: g.nn.ReflectionPad2D(2), (1, 2, 5, 5)),
+        ("Sequential", lambda: stack(g.nn.Sequential), (3, 4)),
+        ("HybridSequential_conv1x1_bn", conv_bn, (2, 4, 4, 3)),
+        ("HybridConcurrent", lambda: _concurrent(g), (2, 3)),
+        ("Lambda", lambda: g.nn.Lambda("tanh"), (3, 4)),
+        ("HybridLambda", lambda: g.nn.HybridLambda(
+            lambda F, x: F.relu(x) * 2), (3, 4)),
+    ]
+
+
+def _concurrent(g):
+    net = g.contrib.nn.HybridConcurrent(axis=1)
+    with net.name_scope():
+        net.add(g.nn.Dense(3), g.contrib.nn.Identity())
+    return net
+
+
+def _loss_cases(g):
+    """(name, loss, pred shape, label maker) of the loss sweep: all 12."""
+    L = g.loss
+    dense = lambda r, s: r.rand(*s)                 # noqa: E731
+    sign = lambda r, s: np.sign(r.randn(*s))        # noqa: E731
+    binary = lambda r, s: r.randint(0, 2, s)        # noqa: E731
+    classes = lambda r, s: r.randint(0, s[1], s[0])  # noqa: E731
+    return [
+        ("L2Loss", L.L2Loss(), (4, 3), dense),
+        ("L1Loss", L.L1Loss(weight=0.5), (4, 3), dense),
+        ("SigmoidBCELoss", L.SigmoidBCELoss(), (4, 3), binary),
+        ("SoftmaxCELoss", L.SoftmaxCELoss(), (4, 5), classes),
+        ("KLDivLoss", L.KLDivLoss(from_logits=False), (4, 5), dense),
+        ("HuberLoss", L.HuberLoss(rho=0.7), (4, 3), dense),
+        ("HingeLoss", L.HingeLoss(), (4, 3), sign),
+        ("SquaredHingeLoss", L.SquaredHingeLoss(), (4, 3), sign),
+        ("LogisticLoss", L.LogisticLoss(), (4, 3), sign),
+        ("TripletLoss", L.TripletLoss(margin=0.5), (4, 6), "triplet"),
+        ("CTCLoss", L.CTCLoss(), (3, 7, 5), "ctc"),
+    ]
+
+
+def _run_layer(mx, layer, x, head, ctx):
+    """(output, input gradient, {block path: weight gradient}) of one
+    recorded forward and backward."""
+    from mxnet_tpu_torch import autograd, nd
+    with ctx:
+        xa = nd.array(x, dtype=x.dtype)
+        grad = x.dtype == np.float32
+        if grad:
+            xa.attach_grad()
+        with autograd.record():
+            y = layer(xa)
+        y.backward(nd.array(head))
+        grads = {k: p.grad().detach().float().cpu()
+                 for k, p in layer._collect_params_with_prefix().items()
+                 if p.grad_req != "null"}
+        return (y.astorch().detach().float().cpu(),
+                xa.grad.astorch().float().cpu() if grad else None, grads)
+
+
+def gluon_layers(ops, dev, card, gen):
+    """Every gluon.nn class of the port and every loss, forward and
+    backward on the card against the same block on the CPU (the same
+    weights, by block path); gluon.nn.LayerNorm at (8192, 768) fp32 on
+    the layer_norm kernel, one launch a forward, held against its plain
+    version and timed; one forward of each zoo family's smallest member
+    (Inception V3 at 299 px), card against CPU. Returns the LayerNorm
+    row."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, gluon, nd
+    tol = 1e-4
+    errs, rng = {}, np.random.RandomState(5)
+    for name, make, shape in _layer_cases(gluon):
+        x = (rng.randint(0, 10, (3, 4)).astype(np.float32)
+             if shape == "indices" else rng.randn(*shape).astype(np.float32))
+        nets = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            with ctx:
+                nets.append(make())
+        cpu_net, card_net = nets
+        with mx.cpu():
+            cpu_net.initialize(mx.init.Uniform(0.5))
+            probe = cpu_net(nd.array(x))
+        card_net.load_parameters(
+            {k: p.data().detach() for k, p in
+             cpu_net._collect_params_with_prefix().items()}, ctx=mx.gpu(0))
+        head = rng.randn(*probe.shape).astype(np.float32)
+        a = _run_layer(mx, cpu_net, x, head, mx.cpu())
+        b = _run_layer(mx, card_net, x, head, mx.gpu(0))
+        scale = max(1.0, a[0].abs().max().item())
+        err = (a[0] - b[0]).abs().max().item() / scale
+        if a[1] is not None:
+            err = max(err, (a[1] - b[1]).abs().max().item() / scale)
+        for k in a[2]:
+            err = max(err, (a[2][k] - b[2][k]).abs().max().item() /
+                      max(1.0, a[2][k].abs().max().item()))
+        if not np.isfinite(err) or err > tol or a[2].keys() != b[2].keys():
+            fail("gluon_layers: %s card vs CPU err %g > %g" % (name, err,
+                                                              tol))
+        errs[name] = err
+    # Dropout: the identity outside record(), the kept share inside
+    with mx.gpu(0):
+        drop = gluon.nn.Dropout(0.25)
+        ones = nd.ones((512, 512))
+        same = bool((drop(ones) == ones).astorch().all())
+        with autograd.record():
+            kept = float((drop(ones) != 0).astorch().float().mean())
+    if not same or abs(kept - 0.75) > 0.01:
+        fail("gluon_layers: Dropout(0.25) identity %s, kept share %g"
+             % (same, kept))
+    dropout = dict(identity_outside_record=same, kept_share=kept,
+                   kept_share_tol=0.01)
+    # the losses
+    loss_errs = {}
+    for name, loss, shape, labels in _loss_cases(gluon):
+        r = np.random.RandomState(6)
+        pred = r.randn(*shape).astype(np.float32)
+        if labels == "triplet":
+            extra = [r.randn(*shape).astype(np.float32) for _ in range(2)]
+        elif labels == "ctc":
+            extra = [np.array([[1, 2, 2, 0], [3, 0, 0, 0], [4, 1, 3, 2]],
+                              np.float32)]
+        else:
+            extra = [np.asarray(labels(r, shape), np.float32)]
+        out = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            with ctx:
+                p = nd.array(pred)
+                p.attach_grad()
+                with autograd.record():
+                    v = loss(p, *[nd.array(e) for e in extra])
+                v.backward()
+                out.append((v.astorch().float().cpu(),
+                            p.grad.astorch().float().cpu()))
+        err = max((u - w).abs().max().item() / max(1.0, u.abs().max().item())
+                  for u, w in zip(*out))
+        if not np.isfinite(err) or err > tol:
+            fail("gluon_layers: %s card vs CPU err %g > %g" % (name, err,
+                                                              tol))
+        loss_errs[name] = err
+    # gluon.nn.LayerNorm on the kernel, at nd_gpt's rows
+    rows, width = 8192, 768
+    with mx.gpu(0):
+        ln = gluon.nn.LayerNorm(in_channels=width)
+        ln.initialize()
+    x = torch.randn(rows, width, generator=gen, device=dev) * 3 + 1
+    ops.reset_launch_counts()
+    y = ln(x)
+    torch.cuda.synchronize()
+    ln_launches = ops.launch_counts()["layer_norm"]
+    want = ops.layer_norm_plain(x, ln.gamma, ln.beta, 1e-5)
+    ln_err = (y - want).abs().max().item()
+    if ln_launches != 1 or ln_err > TOL[("layer_norm", torch.float32)]:
+        fail("gluon_layers: gluon.nn.LayerNorm (%d, %d): %d layer_norm "
+             "launches, err %g" % (rows, width, ln_launches, ln_err))
+    ln_row = check_layer_norm(ops, dev, rows, torch.float32, gen)
+    ln_row.update(launches=ln_launches, layer_ms=cuda_ms(lambda: ln(x)),
+                  layer_max_abs_err=ln_err)
+    emit(phase="kernel_gluon_layernorm", card=card, **ln_row)
+    # one forward of each zoo family's smallest member
+    zoo_errs = {}
+    from mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    for name, side in (("resnet18_v1", 64), ("resnet18_v2", 64),
+                       ("vgg11_bn", 32), ("alexnet", 64),
+                       ("squeezenet1.1", 64), ("densenet121", 224),
+                       ("inceptionv3", 299), ("mobilenet0.25", 64),
+                       ("mobilenetv2_0.25", 64)):
+        x = np.random.RandomState(8).randn(2, 3, side, side) \
+            .astype(np.float32)
+        with mx.cpu():
+            mx.random.seed(8)
+            cpu_net = get_model(name, classes=10)
+            cpu_net.initialize(mx.init.Xavier())
+            want = cpu_net(nd.array(x)).astorch()
+        with mx.gpu(0):
+            card_net = get_model(name, classes=10)
+            card_net.load_parameters(
+                {k: p.data().detach() for k, p in
+                 cpu_net._collect_params_with_prefix().items()})
+            got = card_net(nd.array(x)).astorch().cpu()
+        err = (got - want).abs().max().item() / max(1.0, want.abs().max()
+                                                    .item())
+        if not np.isfinite(err) or err > tol or got.shape != (2, 10):
+            fail("gluon_layers: %s card vs CPU logits err %g > %g"
+                 % (name, err, tol))
+        zoo_errs[name] = err
+    emit(phase="gluon_layers", card=card, layers=len(errs) + 1,
+         losses=len(loss_errs), zoo=len(zoo_errs), tol=tol,
+         layer_max_err=max(errs.values()), loss_max_err=max(
+             loss_errs.values()), zoo_max_err=max(zoo_errs.values()),
+         layer_errs=errs, dropout=dropout, loss_errs=loss_errs,
+         zoo_errs=zoo_errs,
+         layernorm=dict(shape=[rows, width], launches=ln_launches,
+                        max_abs_err=ln_err))
+    return ln_row
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -1843,12 +2550,19 @@ def main():
     flash_nd = nd_flash(ops, dev, card, gen)
     nd_save(dev)
     gpt_nd = nd_gpt(ops, dev, card, gen)
+    # phases 14-16: Gluon breadth
+    cifar_launches = gluon_cifar(ops, dev, card)
+    zoo_launches, mobilenet = zoo_train(ops, dev, card, gen)
+    ln_gluon = gluon_layers(ops, dev, card, gen)
     by_path = {name: {"train": train_launches[name],
                       "gluon_train": gluon_launches[name],
-                      "nd_gpt": gpt_nd["launches"][name]}
+                      "nd_gpt": gpt_nd["launches"][name],
+                      "gluon_cifar": cifar_launches[name],
+                      "zoo_train": zoo_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
-                             "nd_gpt": gpt_nd["launches"]["layer_norm"]}
+                             "nd_gpt": gpt_nd["launches"]["layer_norm"],
+                             "gluon_layers": ln_gluon["launches"]}
     by_path["flash_attention"] = {
         "serve": launches["flash_attention"],
         "nd_flash": flash_nd["launches"],
@@ -1896,6 +2610,16 @@ def main():
         bound_by=ln["bound_by"], library_ms=ln["library_ms"],
         library_device_ms=ln["library_device_ms"])
     kernels[0]["nd_flash"] = flash_nd["rows"]
+    # gluon.nn.LayerNorm at the same rows, one launch a forward
+    kernels[1]["gluon_layers"] = dict(
+        shape=ln_gluon["shape"], dtype="fp32",
+        max_abs_err=max(ln_gluon["max_abs_err"],
+                        ln_gluon["layer_max_abs_err"]),
+        launches=ln_gluon["launches"], ms=ln_gluon["kernel_ms"],
+        layer_ms=ln_gluon["layer_ms"], device_ms=ln_gluon["device_ms"],
+        plain_ms=ln_gluon["plain_ms"], bound_ms=ln_gluon["bound_us"] / 1e3,
+        bound_by=ln_gluon["bound_by"], library_ms=ln_gluon["library_ms"],
+        library_device_ms=ln_gluon["library_device_ms"])
     # the update: ResNet-50's 193 tensors in one launch, in the m-form
     # (ShardedTrainer, fp32) and in MXNet's form (gluon.Trainer, mp bf16)
     r = next(r for r in rows if r["name"] == "fused_sgd_momentum" and
@@ -1945,7 +2669,21 @@ def main():
         library_device_ms=conv_per["library_device_ms"],
         shape="ResNet-50 b128 forward, "
         "36 calls, %d shapes" % conv_per["shapes"], dtype="bf16",
-        per="train forward", launches_by_path=by_path["conv1x1_bn_stats"]))
+        per="train forward", launches_by_path=by_path["conv1x1_bn_stats"],
+        mobilenet=dict(
+            shape="MobileNet-1.0 b128 NHWC forward, %d calls, %d shapes"
+            % (mobilenet["calls"], mobilenet["shapes"]), dtype="bf16",
+            per="zoo_train forward",
+            launches=by_path["conv1x1_bn_stats"]["zoo_train"],
+            max_abs_err=mobilenet["err"], ms=mobilenet["ms"],
+            device_ms=mobilenet["device_ms"],
+            device_ms_in_step=mobilenet["device_ms_in_step"],
+            plain_ms=mobilenet["plain_ms"],
+            bound_ms=mobilenet["bound_ms"],
+            bound_by="bytes" if mobilenet["t_bytes"] >= mobilenet["t_ops"]
+            else "operations", library_ms=mobilenet["library_ms"],
+            library_device_ms=mobilenet["library_device_ms"],
+            kernels=mobilenet["kernels"])))
     emit(kernels=kernels)
     print(card_line(), flush=True)
     faulthandler.cancel_dump_traceback_later()

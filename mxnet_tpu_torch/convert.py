@@ -95,13 +95,13 @@ def init_resnet_params(net, seed=0):
     numpy seed, as Gluon's default initializer draws them: weights
     Uniform(-0.07, 0.07), biases and BatchNorm shifts 0, gains 1, running
     means 0 and variances 1. Draws follow the Gluon name order, so one
-    seed gives the same weights on every device. Returns {name: array}
-    in the port's layout."""
+    seed gives the same weights on every device. Returns {Gluon name:
+    array} in the port's layout."""
     from .gluon.block import collect_params   # gluon imports this module
     rng = np.random.RandomState(seed)
     tensors = dict(net.named_parameters())
     tensors.update(net.named_buffers())
-    out = {}
+    out, by_path = {}, {}
     for name, path in collect_params(net).items():
         shape = tuple(tensors[path].shape)
         if name.endswith("_weight"):
@@ -111,43 +111,65 @@ def init_resnet_params(net, seed=0):
         else:
             arr = np.zeros(shape)
         out[name] = arr.astype(np.float32)
-    net.load_parameters({k: torch.from_numpy(v) for k, v in out.items()})
+        by_path[path] = torch.from_numpy(out[name])
+    net.load_parameters(by_path)
     return out
+
+
+def _jax_arrays(jax_params):
+    """{name: numpy array} of a JAX block (its dotted block paths, which
+    `save_parameters` writes) or of a dict of arrays or NDArrays."""
+    if hasattr(jax_params, "_collect_params_with_prefix"):
+        jax_params = jax_params._collect_params_with_prefix()
+    return {k: (v.data() if hasattr(v, "data") and callable(v.data)
+                else v) for k, v in jax_params.items()}
+
+
+def _np(arr):
+    return arr.asnumpy() if hasattr(arr, "asnumpy") else np.asarray(arr)
 
 
 def gluon_params_from_jax(jax_block_params, device=None, layout="NCHW",
                           prefix=None):
-    """{port name: tensor} on `device` (default CUDA) from any JAX Gluon
-    block's parameters, ``{name: array}`` (its `collect_params()` values
-    as numpy), for `HybridBlock.load_parameters`. The names lose the JAX
-    block's own prefix, which the port's top block does not have:
-    `prefix`, or else the first ``_``-separated word that every name
-    shares (``resnetv10_``, ``hybridsequential0_``). NHWC convolution
-    weights, the 4-D arrays of an NHWC block, go from (O, kh, kw, I) to
-    PyTorch's (O, I, kh, kw); everything else carries over as it is
-    (bf16 arrays as bf16)."""
+    """{name: tensor} on `device` (default CUDA) for the port block's
+    `load_parameters`, from a JAX Gluon block or its parameters.
+
+    Names are structural: given the JAX block itself (or a dict keyed by
+    its dotted block paths, ``features.0.weight``), they are those paths,
+    which the port's blocks share whatever the two packages' name
+    counters stand at. A dict of Gluon names (the JAX block's
+    `collect_params()` values, the earlier form) loses the JAX block's
+    own prefix: `prefix`, or else the first ``_``-separated word that
+    every name shares (``resnetv10_``), and the port block restores its
+    own. NHWC convolution weights, the 4-D arrays of an NHWC block, go
+    from (O, kh, kw, I) to PyTorch's (O, I, kh, kw); everything else
+    carries over as it is (bf16 arrays as bf16)."""
     dev = resolve_device(device)
     if layout not in ("NCHW", "NHWC"):
         raise MXNetError("layout must be NCHW or NHWC, got %r" % (layout,))
-    if prefix is None:
-        heads = {name.split("_", 1)[0] for name in jax_block_params}
-        if len(heads) != 1:
-            raise MXNetError("gluon_params_from_jax: the names do not share "
-                             "one net prefix: %s" % sorted(heads))
-        prefix = heads.pop() + "_"
+    structural = hasattr(jax_block_params, "_collect_params_with_prefix")
+    arrays = _jax_arrays(jax_block_params)
+    if not structural and not any("." in k for k in arrays):
+        if prefix is None:
+            heads = {name.split("_", 1)[0] for name in arrays}
+            if len(heads) != 1:
+                raise MXNetError("gluon_params_from_jax: the names do not "
+                                 "share one net prefix: %s" % sorted(heads))
+            prefix = heads.pop() + "_"
+        for name in arrays:
+            if not name.startswith(prefix):
+                raise MXNetError("gluon_params_from_jax: %r lacks the "
+                                 "prefix %r" % (name, prefix))
+        arrays = {k[len(prefix):]: v for k, v in arrays.items()}
     out = {}
-    for name, arr in jax_block_params.items():
-        if not name.startswith(prefix):
-            raise MXNetError("gluon_params_from_jax: %r lacks the prefix "
-                             "%r" % (name, prefix))
-        t = _to_torch(arr)
+    for name, arr in arrays.items():
+        t = _to_torch(_np(arr))
         if layout == "NHWC" and t.dim() == 4:
             t = t.permute(0, 3, 1, 2).contiguous()
-        out[name[len(prefix):]] = t.to(dev)
+        out[name] = t.to(dev)
     return out
 
 
 def resnet_params_from_jax(np_params, device=None, layout="NCHW"):
-    """`gluon_params_from_jax` of a JAX ResNet's parameters (the JAX net's
-    prefix, ``resnetv10_`` etc., dropped)."""
+    """`gluon_params_from_jax` of a JAX ResNet or its parameters."""
     return gluon_params_from_jax(np_params, device, layout)

@@ -1,9 +1,19 @@
-"""Gluon (counterpart of mxnet_tpu/gluon/): the layers, loss and model zoo
-that the ported paths run, `Parameter`/`ParameterDict` and `Trainer`."""
-from . import loss, model_zoo, nn
-from .block import HybridBlock, collect_params
-from .parameter import Parameter, ParameterDict
+"""Gluon (counterpart of mxnet_tpu/gluon/): `Block`/`HybridBlock`,
+`Parameter`/`Constant`/`ParameterDict`, `Trainer`, the layers and
+losses, `gluon.data`, `gluon.utils` and the model zoo."""
+from . import parameter
+from .parameter import Constant, Parameter, ParameterDict
+from . import block
+from .block import Block, HybridBlock, collect_params
+from . import trainer
 from .trainer import Trainer
+from . import utils
+from . import nn
+from . import loss
+from . import data
+from . import model_zoo
+from . import contrib
 
-__all__ = ["HybridBlock", "Parameter", "ParameterDict", "Trainer",
-           "collect_params", "loss", "model_zoo", "nn"]
+__all__ = ["Block", "Constant", "HybridBlock", "Parameter", "ParameterDict",
+           "Trainer", "collect_params", "contrib", "data", "loss",
+           "model_zoo", "nn", "utils"]

@@ -1,8 +1,5 @@
-"""Gluon layers (counterpart of mxnet_tpu/gluon/nn/): the ones ResNet V1
-is built from."""
-from .activations import Activation
-from .basic_layers import BatchNorm, Dense, Flatten, HybridSequential
-from .conv_layers import Conv2D, GlobalAvgPool2D, MaxPool2D
-
-__all__ = ["Activation", "BatchNorm", "Conv2D", "Dense", "Flatten",
-           "GlobalAvgPool2D", "HybridSequential", "MaxPool2D"]
+"""Gluon layers (counterpart of mxnet_tpu/gluon/nn/)."""
+from .activations import *  # noqa: F401,F403
+from .basic_layers import *  # noqa: F401,F403
+from .conv_layers import *  # noqa: F401,F403
+from . import activations, basic_layers, conv_layers  # noqa: F401

@@ -52,8 +52,9 @@ class Trainer:
         if compression_params:
             raise MXNetError("gradient compression is not ported yet")
         self._params = _normalize_params(params)
-        # a parameter holds its block weakly: the trainer keeps them
-        self._blocks = {id(b): b for b in (p._block for p in self._params)}
+        # a parameter holds its blocks weakly: the trainer keeps them
+        self._blocks = {id(b): b for p in self._params
+                        for b, _, _ in p._live_holders()}
         opt_kw = dict(optimizer_params or {})
         self._scale = float(opt_kw.get("rescale_grad", 1.0))
         self._kvstore_spec = (kvstore, update_on_kvstore)

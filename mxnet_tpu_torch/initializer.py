@@ -12,7 +12,9 @@ from the JAX layout's shape), not in bits.
 """
 from __future__ import annotations
 
+import json
 import math
+import re
 
 import numpy as np
 import torch
@@ -20,8 +22,9 @@ import torch
 from . import random as _random
 from .base import MXNetError
 
-__all__ = ["Constant", "InitDesc", "Initializer", "MSRAPrelu", "Normal",
-           "One", "Uniform", "Xavier", "Zero", "create", "register"]
+__all__ = ["Bilinear", "Constant", "FusedRNN", "InitDesc", "Initializer",
+           "LSTMBias", "Load", "MSRAPrelu", "Mixed", "Normal", "One",
+           "Orthogonal", "Uniform", "Xavier", "Zero", "create", "register"]
 
 _REGISTRY = {}
 
@@ -115,6 +118,22 @@ class Initializer:
     _init_bias = _init_zero
     _init_beta = _init_zero
     _init_gamma = _init_one
+
+    def _init_bilinear(self, _, arr):
+        """The bilinear upsampling filter (initializer.py:112)."""
+        shape = arr.shape
+        n = int(np.prod(shape))
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(n)
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = (1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))
+        _fill(arr, torch.from_numpy(weight.reshape(shape).astype(
+            np.float32)))
+
+    def dumps(self):
+        return json.dumps([self.__class__.__name__.lower(), self._kwargs])
 
     def _init_weight(self, desc, arr):
         raise NotImplementedError
@@ -232,6 +251,134 @@ class MSRAPrelu(Xavier):
         super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
                          generator)
         self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Orthogonal(Initializer):
+    """initializer.py:246: `scale` times an orthonormal basis (from the
+    SVD of a uniform or normal draw of numpy's generator) shaped as the
+    weight (out, prod(in))."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", generator=None):
+        super().__init__(generator, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = np.random.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = np.random.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        q = u if u.shape == tmp.shape else v
+        _fill(arr, torch.from_numpy((self.scale * q.reshape(arr.shape))
+                                    .astype(np.float32)))
+
+
+@register
+class Bilinear(Initializer):
+    """initializer.py:316: the bilinear upsampling kernel, for a
+    transposed convolution's weight."""
+
+    def _init_weight(self, desc, arr):
+        self._init_bilinear(desc, arr)
+
+
+@register
+class LSTMBias(Initializer):
+    """initializer.py:322: zeros, with the forget gate's quarter of an
+    LSTM bias at `forget_bias`."""
+
+    def __init__(self, forget_bias=1.0, generator=None):
+        super().__init__(generator, forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, _, arr):
+        b = np.zeros(arr.shape, dtype=np.float32)
+        num_hidden = int(b.shape[0] / 4)
+        b[num_hidden:2 * num_hidden] = self.forget_bias
+        _fill(arr, torch.from_numpy(b))
+
+    _init_default = _init_weight
+    _init_bias = _init_weight
+
+
+@register
+class FusedRNN(Initializer):
+    """initializer.py:340: the flat parameter vector of a fused RNN
+    layer, drawn as U(-1/sqrt(num_hidden), 1/sqrt(num_hidden)), as the
+    JAX package draws it."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0, generator=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = _REGISTRY[klass.lower()](**kwargs)
+        super().__init__(generator, init=init.dumps() if init else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+
+    def _init_weight(self, desc, arr):
+        self._init_default(desc, arr)
+
+    def _init_default(self, _, arr):
+        scale = math.sqrt(1.0 / self._num_hidden)
+        u = torch.rand(arr.shape, generator=self._gen())
+        _fill(arr, u * (2 * scale) - scale)
+
+
+@register
+class Load(Initializer):
+    """initializer.py:153: the values of a dict {name: array} (names
+    may carry the "arg:"/"aux:" prefixes of a saved file), else
+    `default_init`."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        super().__init__()
+        self.param = {
+            (k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+
+    def __call__(self, name, arr):
+        name = str(name)
+        if name in self.param:
+            src = self.param[name]
+            src = src._data if hasattr(src, "_data") else \
+                torch.as_tensor(np.asarray(src))
+            if tuple(src.shape) != tuple(arr.shape):
+                raise MXNetError("Load: shape mismatch for %s" % name)
+            _fill(arr, src)
+        else:
+            if self.default_init is None:
+                raise MXNetError("Load: no init for %r" % name)
+            self.default_init(name, arr)
+
+
+@register
+class Mixed(Initializer):
+    """initializer.py:177: the initializer of the first regex pattern
+    that matches the parameter's name."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must pair up")
+        self.map = list(zip([re.compile(p) for p in patterns],
+                            initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(str(name)):
+                init(name, arr)
+                return
+        raise MXNetError("Mixed: no pattern matches %r; add '.*' last"
+                         % str(name))
 
 
 register_alias(Zero, "zeros")

@@ -140,13 +140,14 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     """ops/nn.py:466 `BatchNorm`. Returns (y, new_moving_mean,
     new_moving_var); the new moving statistics carry no gradient.
 
-    Training (and not `use_global_stats`): single-pass fp32 statistics,
-    var = max(E[x^2] - E[x]^2, 0), unless `stats` = (mean, var) hands in
-    ones already computed (by `ops.conv1x1_bn_stats` in the producer's
-    epilogue). The moving statistics become momentum * old +
-    (1 - momentum) * batch (MXNet's momentum: not PyTorch's complement,
-    and the biased variance). The scale and shift fold into one
-    per-channel pair, computed in fp32 and applied in x's dtype."""
+    Training (and not `use_global_stats`): single-pass statistics in
+    fp32 (fp64 for fp64 x), var = max(E[x^2] - E[x]^2, 0), unless
+    `stats` = (mean, var) hands in ones already computed (by
+    `ops.conv1x1_bn_stats` in the producer's epilogue). The moving
+    statistics become momentum * old + (1 - momentum) * batch (MXNet's
+    momentum: not PyTorch's complement, and the biased variance). The
+    scale and shift fold into one per-channel pair, computed in the
+    statistics' dtype and applied in x's dtype."""
     y, _, _, new_mm, new_mv = _batch_norm(
         x, gamma, beta, moving_mean, moving_var, eps, momentum, fix_gamma,
         use_global_stats, axis, training, stats)
@@ -162,7 +163,7 @@ def _batch_norm(x, gamma, beta, moving_mean, moving_var, eps, momentum,
     if training and not use_global_stats:
         if stats is None:
             red = tuple(i for i in range(x.dim()) if i != ax)
-            xf = x.float()
+            xf = x if x.dtype == torch.float64 else x.float()
             mean = xf.mean(dim=red)
             var = torch.clamp((xf * xf).mean(dim=red) - mean * mean,
                               min=0.0)

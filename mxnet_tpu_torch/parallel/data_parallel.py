@@ -191,4 +191,5 @@ class ShardedTrainer:
     def copy_params_to_net(self):
         """Write the trained values back into the net's parameters and
         buffers."""
-        self._net.load_parameters({**self._params, **self._aux})
+        self._net.load_parameters({self._paths[n]: v for n, v in
+                                   {**self._params, **self._aux}.items()})

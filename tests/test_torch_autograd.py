@@ -150,15 +150,17 @@ def test_vector_loss_backward_seeds_ones_as_jax_does():
     tp = td.collect_params()
     for name in ("weight", "bias"):
         want = jd.collect_params()[jd.prefix + name].grad().asnumpy()
-        assert np.abs(tp[name].grad().numpy() - want).max() < GRAD_TOL
-        assert tp[name]._fresh_grad
-        assert type(tp[name].grad()) is torch.Tensor
+        got = tp[td.prefix + name]
+        assert np.abs(got.grad().numpy() - want).max() < GRAD_TOL
+        assert got._fresh_grad
+        assert type(got.grad()) is torch.Tensor
     # the same gradients as torch's backward of the summed loss
     w = td.weight.detach().clone().requires_grad_(True)
     torch.nn.functional.cross_entropy(
         torch.from_numpy(x) @ w.t() + td.bias.detach(),
         torch.from_numpy(y).long(), reduction="sum").backward()
-    assert torch.allclose(w.grad, tp["weight"].grad(), atol=GRAD_TOL)
+    assert torch.allclose(w.grad, tp[td.prefix + "weight"].grad(),
+                          atol=GRAD_TOL)
 
 
 @pytest.mark.parametrize("grad_req", ["write", "add"])
@@ -174,10 +176,11 @@ def test_grad_req_over_two_backwards_matches_jax(grad_req):
         x = rng.randn(4, 4).astype(np.float32)
         y = rng.randint(0, 3, 4).astype(np.float32)
         _backward(jd, td, x, y)
-        grads.append(td.collect_params()["weight"].grad().clone())
+        grads.append(td.collect_params()[td.prefix + "weight"].grad()
+                     .clone())
     for name in ("weight", "bias"):
         want = jd.collect_params()[jd.prefix + name].grad().asnumpy()
-        got = td.collect_params()[name].grad().numpy()
+        got = td.collect_params()[td.prefix + name].grad().numpy()
         assert np.abs(got - want).max() < GRAD_TOL, name
     assert not torch.allclose(grads[0], grads[1])
 
@@ -185,21 +188,23 @@ def test_grad_req_over_two_backwards_matches_jax(grad_req):
 def test_null_grad_req_has_no_gradient_and_backward_leaves_it():
     jd, td = _dense_pair()
     tp = td.collect_params()
-    tp["bias"].grad_req = "null"
+    tp[td.prefix + "bias"].grad_req = "null"
     assert not td.bias.requires_grad
     with pytest.raises(MXNetError, match="null"):
-        tp["bias"].grad()
+        tp[td.prefix + "bias"].grad()
     x = np.ones((2, 4), np.float32)
     with autograd.record():
         loss = gluon.loss.SoftmaxCrossEntropyLoss()(
             td(torch.from_numpy(x)), torch.zeros(2))
     loss.backward()
-    assert tp["weight"]._fresh_grad and not tp["bias"]._fresh_grad
+    assert tp[td.prefix + "weight"]._fresh_grad and \
+        not tp[td.prefix + "bias"]._fresh_grad
     # buffers never take a gradient
     bn = gluon.nn.BatchNorm(in_channels=3, device="cpu")
-    assert bn.collect_params()["running_mean"].grad_req == "null"
-    bn.collect_params()["running_mean"].grad_req = "write"
-    assert bn.collect_params()["running_mean"].grad_req == "null"
+    mean = bn.prefix + "running_mean"
+    assert bn.collect_params()[mean].grad_req == "null"
+    bn.collect_params()[mean].grad_req = "write"
+    assert bn.collect_params()[mean].grad_req == "null"
 
 
 def test_backward_of_an_unrecorded_output_raises():
@@ -221,7 +226,7 @@ def test_backward_of_an_unrecorded_output_raises():
             autograd.backward(tloss)
         assert str(terr.value) == str(jerr.value), head
         assert "not in the recorded graph" in str(terr.value)
-        assert not td.collect_params()["weight"]._fresh_grad
+        assert not td.collect_params()[td.prefix + "weight"]._fresh_grad
 
 
 def test_predict_mode_forward_builds_no_graph():
@@ -246,11 +251,12 @@ def test_head_gradient_seeds_the_backward_and_zero_grad_is_not_fresh():
         out = td(x)
     autograd.backward(out, seed)
     tp = td.collect_params()
-    assert torch.equal(tp["bias"].grad(), torch.tensor([1.0, 0.0, 2.0]))
-    assert torch.equal(tp["weight"].grad(), seed.t() @ x)
+    bias, weight = tp[td.prefix + "bias"], tp[td.prefix + "weight"]
+    assert torch.equal(bias.grad(), torch.tensor([1.0, 0.0, 2.0]))
+    assert torch.equal(weight.grad(), seed.t() @ x)
     tp.zero_grad()
-    tp["bias"]._fresh_grad = False
-    assert not tp["bias"].grad().any() and not tp["bias"]._fresh_grad
+    bias._fresh_grad = False
+    assert not bias.grad().any() and not bias._fresh_grad
 
 
 def test_ndarray_head_reads_back_as_numpy_and_scalar():
@@ -278,7 +284,7 @@ def test_a_dropped_net_leaves_the_live_set_at_once(holder):
         before = len(autograd._live)
         net = gluon.nn.Dense(3, in_units=4, device="cpu")
         kept = net.collect_params()
-        lone = kept["weight"]
+        lone = kept[net.prefix + "weight"]
         if holder == "trainer":
             kept = gluon.Trainer(kept, "sgd")
         elif holder == "nothing":
@@ -327,9 +333,9 @@ def nets():
 
 def _running(net, port):
     if port:
-        return {k: v.data().clone() for k, v in
+        return {k[len(net.prefix):]: v.data().clone() for k, v in
                 net.collect_params().items() if "_running_" in k}
-    return {k.split("_", 1)[1]: np.asarray(v.data()._data)
+    return {k[len(net.prefix):]: np.asarray(v.data()._data)
             for k, v in net.collect_params().items() if "_running_" in k}
 
 
@@ -341,9 +347,7 @@ def test_fresh_net_predicts_outside_record_as_jax_does(nets, monkeypatch):
     tnet = vision.ResNetV1(vision.BottleneckV1, [1, 1], [16, 32, 64],
                            classes=10, layout="NHWC", device="cpu")
     assert tnet.training        # torch's own flag plays no part
-    tnet.load_parameters(gluon_params_from_jax(
-        {k: np.asarray(v.data()._data)
-         for k, v in jnet.collect_params().items()}, "cpu", "NHWC"))
+    tnet.load_parameters(gluon_params_from_jax(jnet, "cpu", "NHWC"))
     fused = []
     real = conv_layers.conv1x1_bn_nhwc
     monkeypatch.setattr(conv_layers, "conv1x1_bn_nhwc",
@@ -372,9 +376,7 @@ def test_fresh_net_predicts_outside_record_as_jax_does(nets, monkeypatch):
 
 def test_predict_mode_inside_record_uses_running_statistics(nets):
     jnet, tnet = nets
-    tnet.load_parameters(gluon_params_from_jax(
-        {k: np.asarray(v.data()._data)
-         for k, v in jnet.collect_params().items()}, "cpu", "NHWC"))
+    tnet.load_parameters(gluon_params_from_jax(jnet, "cpu", "NHWC"))
     x = torch.randn(2, 32, 32, 3)
     before = _running(tnet, True)
     with autograd.record(train_mode=False):
@@ -387,10 +389,12 @@ def test_predict_mode_inside_record_uses_running_statistics(nets):
 
 def test_collect_params_names_and_order_match_jax(nets):
     jnet, tnet = nets
-    want = [k.split("_", 1)[1] for k in jnet.collect_params()]
-    assert list(tnet.collect_params()) == want
+    want = [k[len(jnet.prefix):] for k in jnet.collect_params()]
+    got = [k[len(tnet.prefix):] for k in tnet.collect_params()]
+    assert got == want
     sel = tnet.collect_params(".*_running_")
-    assert list(sel) == [k for k in want if "_running_" in k]
+    assert [k[len(tnet.prefix):] for k in sel] == \
+        [k for k in want if "_running_" in k]
     for name, p in tnet.collect_params().items():
-        jp = jnet.collect_params()[jnet.prefix + name]
+        jp = jnet.collect_params()[jnet.prefix + name[len(tnet.prefix):]]
         assert p.grad_req == jp.grad_req, name

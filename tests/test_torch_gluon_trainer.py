@@ -150,7 +150,7 @@ def _errs(jnet, jtr, tnet, ttr):
     jstates, tstates = _updater(jtr).states, _updater(ttr).states
     for i, (k, p) in enumerate(jnet.collect_params().items()):
         name = k.split("_", 1)[1]
-        got = tp[name].data().detach().float().numpy()
+        got = tp[tnet.prefix + name].data().detach().float().numpy()
         want = _port_layout(p.data()._data.astype(jnp.float32))
         kind = "aux" if "_running_" in name else "param"
         out[kind] = max(out[kind], float(np.abs(got - want).max()))
@@ -223,7 +223,7 @@ def test_ignore_stale_grad_updates_only_fresh_parameters(setup):
     ttr.step(BATCH, ignore_stale_grad=True)
     for k, p in tnet.collect_params().items():
         moved = not torch.equal(p.data(), before[k])
-        assert moved == k.startswith("dense0_"), k
+        assert moved == k[len(tnet.prefix):].startswith("dense0_"), k
     _check(jnet, jtr, tnet, ttr)
 
 
@@ -300,10 +300,12 @@ def test_save_and_load_states_continue_identically(setup, tmp_path,
     assert runs[1][1].optimizer.num_update == 2
     for net, tr in restored + runs[2:]:
         _port_step(net, tr, x, y)
-    want = runs[2][0].collect_params()
+    want = list(runs[2][0].collect_params().values())
     for net, tr in restored:
-        for k, p in net.collect_params().items():
-            assert torch.equal(p.data(), want[k].data()), k
+        # three nets, three top-level prefixes: compared in Gluon's order
+        for (k, p), w in zip(net.collect_params().items(), want):
+            assert k[len(net.prefix):] == w.name[len(runs[2][0].prefix):]
+            assert torch.equal(p.data(), w.data()), k
         assert tr.learning_rate == runs[2][1].learning_rate
 
 
@@ -357,7 +359,7 @@ def _change_load_parameters(pkg, net, step_fn):
         for p in net.collect_params().values():
             p.set_data(p.data() * 0.5)
     else:
-        net.load_parameters({k: p.data().detach() * 0.5
+        net.load_parameters({k[len(net.prefix):]: p.data().detach() * 0.5
                              for k, p in net.collect_params().items()})
 
 
@@ -614,7 +616,7 @@ def test_bf16_multi_precision_within_jax_bf16_distance(setup):
             continue
         b = _port_layout(pb.data()._data.astype(jnp.float32))
         f = _port_layout(pf.data()._data.astype(jnp.float32))
-        got = tp[name].data().detach().float().numpy()
+        got = tp[tnet.prefix + name].data().detach().float().numpy()
         assert np.abs(got - b).max() <= NOISE * np.abs(b - f).max() \
             + MARGIN, name
     masters = [s[0] for s in _updater(ttr).states.values()]
@@ -692,7 +694,8 @@ def test_initialize_follows_each_parameters_own_initializer(setup):
             assert not t.any(), name
         else:
             assert t.std() > 0 and t.shape == _port_layout(
-                jp[jnet.prefix + name].data()._data).shape, name
+                jp[jnet.prefix + name[len(net.prefix):]].data()._data) \
+                .shape, name
     before = net.output.weight.detach().clone()
     with pytest.warns(UserWarning, match="force_reinit"):
         net.initialize(tmx.init.Xavier())

@@ -68,6 +68,11 @@ def _python_files():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    # the port's scripts, which run on the card
+    tools = os.path.join(ROOT, "tools")
+    for f in sorted(os.listdir(tools)):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(tools, f)
 
 
 def test_no_module_imports_jax_or_the_jax_package():

@@ -85,19 +85,25 @@ def small(request):
     layout = request.param
     jnet, np_params = _jax_net(_small_jax, layout, seed=5)
     tnet = _small_port(layout)
-    tnet.load_parameters(resnet_params_from_jax(np_params, "cpu", layout))
+    # structural names: the JAX net's dotted block paths
+    tnet.load_parameters(resnet_params_from_jax(jnet, "cpu", layout))
     return layout, jnet, tnet, np_params
 
 
 def test_weights_carry_over_name_for_name(small):
-    layout, _, tnet, np_params = small
+    layout, jnet, tnet, np_params = small
     names = collect_params(tnet)
     assert len(np_params) == len(names) == 51
-    assert {k.split("_", 1)[1] for k in np_params} == set(names)
+    assert {k[len(jnet.prefix):] for k in np_params} == \
+        {k[len(tnet.prefix):] for k in names}
+    # the JAX block paths are the port's module paths
+    paths = {p.name: k for k, p in
+             jnet._collect_params_with_prefix().items()}
+    assert set(paths.values()) == set(names.values())
     tensors = dict(tnet.named_parameters())
     tensors.update(tnet.named_buffers())
     for jname, arr in np_params.items():
-        got = tensors[names[jname.split("_", 1)[1]]].detach().numpy()
+        got = tensors[paths[jname]].detach().numpy()
         if layout == "NHWC" and arr.ndim == 4:
             got = got.transpose(0, 2, 3, 1)    # back to (O, kh, kw, I)
         assert np.array_equal(got, arr), jname
@@ -150,7 +156,8 @@ def test_train_logits_and_moving_stats_match_jax(small):
         if "_running_" in jname:
             new = np.asarray(p.data()._data)
             assert not np.array_equal(new, np_params[jname])
-            port = bufs[names[jname.split("_", 1)[1]]].numpy()
+            port = bufs[names[tnet.prefix + jname[len(jnet.prefix):]]] \
+                .numpy()
             assert np.abs(port - new).max() < STAT_TOL, jname
             moved += 1
     assert moved == 18
@@ -162,7 +169,7 @@ def resnet18():
         lambda layout: jresnet.resnet18_v1(classes=10, layout=layout),
         "NHWC", seed=6)
     tnet = vision.resnet18_v1(classes=10, layout="NHWC", device="cpu")
-    tnet.load_parameters(resnet_params_from_jax(np_params, "cpu", "NHWC"))
+    tnet.load_parameters(resnet_params_from_jax(jnet, "cpu", "NHWC"))
     return jnet, tnet
 
 
@@ -189,12 +196,13 @@ def test_init_resnet_params_is_seeded_and_gluon_shaped():
     pa = init_resnet_params(a, seed=11)
     pb = init_resnet_params(b, seed=11)
     assert list(pa) == list(collect_params(a))
-    for name in pa:
-        assert np.array_equal(pa[name], pb[name]), name
-    assert pa["conv0_weight"].shape == (16, 3, 7, 7)
-    assert np.abs(pa["conv0_weight"]).max() <= 0.07
-    assert (pa["batchnorm0_running_var"] == 1).all()
-    assert (pa["stage1_conv0_bias"] == 0).all()
-    assert pa["conv0_weight"].std() > 0.03
-    assert torch.equal(a.features[0].weight,
-                       torch.from_numpy(pa["conv0_weight"]))
+    for (name, va), (nb, vb) in zip(pa.items(), pb.items()):
+        assert name[len(a.prefix):] == nb[len(b.prefix):]
+        assert np.array_equal(va, vb), name
+    conv0 = pa[a.prefix + "conv0_weight"]
+    assert conv0.shape == (16, 3, 7, 7)
+    assert np.abs(conv0).max() <= 0.07
+    assert (pa[a.prefix + "batchnorm0_running_var"] == 1).all()
+    assert (pa[a.prefix + "stage1_conv0_bias"] == 0).all()
+    assert conv0.std() > 0.03
+    assert torch.equal(a.features[0].weight, torch.from_numpy(conv0))

@@ -95,12 +95,13 @@ def _as_port(name, arr):
     return name.split("_", 1)[1], arr
 
 
-def _errs(port, jax_state):
-    """{name: max abs difference} of the port's state from JAX's."""
+def _errs(port, jax_state, prefix):
+    """{name: max abs difference} of the port's state (names under the
+    port net's `prefix`) from JAX's."""
     out = {}
     for jname, arr in jax_state.items():
         name, want = _as_port(jname, arr)
-        out[name] = np.abs(port[name].numpy() - want).max()
+        out[name] = np.abs(port[prefix + name].numpy() - want).max()
     return out
 
 
@@ -137,7 +138,8 @@ def test_three_steps_match_jax_trainer(weights, compute_dtype):
         if ref is None:
             assert abs(got - want) < TOL["loss"], (step, got, want)
             for kind in ("param", "momentum", "aux"):
-                err = max(_errs(port[kind], jax_[kind]).values())
+                err = max(_errs(port[kind], jax_[kind],
+                                st._net.prefix).values())
                 assert err < TOL[kind], (step, kind, err)
             continue
         ref.step(x, y)
@@ -147,7 +149,8 @@ def test_three_steps_match_jax_trainer(weights, compute_dtype):
             noise = {_as_port(k, a)[0]: np.abs(
                 _as_port(k, a)[1] - _as_port(k, fp32[kind][k])[1]).max()
                 for k, a in jax_[kind].items()}
-            for name, err in _errs(port[kind], jax_[kind]).items():
+            for name, err in _errs(port[kind], jax_[kind],
+                                   st._net.prefix).items():
                 assert err <= NOISE * noise[name] + MARGIN[kind], \
                     (step, kind, name, err, noise[name])
     assert all(v.dtype == torch.float32 for v in st.params.values())
@@ -172,8 +175,10 @@ def test_step_many_equals_three_steps(weights):
     assert np.allclose(many.numpy(), stepped, rtol=0, atol=1e-6)
     for state in ("params", "momentum", "aux"):
         pa, pb = getattr(a, state), getattr(b, state)
-        for k in pa:
-            assert torch.allclose(pa[k], pb[k], rtol=0, atol=1e-6), k
+        # two nets, two top-level prefixes: the same names below them
+        for (k, va), (kb, vb) in zip(pa.items(), pb.items()):
+            assert k[len(a._net.prefix):] == kb[len(b._net.prefix):]
+            assert torch.allclose(va, vb, rtol=0, atol=1e-6), k
     guard = numerics.drain_flags()
     assert guard["skipped_steps"] == 0 and guard["anomalies"] == 0
     assert guard["total"] == 4     # 3 step verdicts + 1 window verdict

@@ -124,6 +124,46 @@ Phases; any failure exits non-zero before the final line:
              version and timed; one forward of each zoo family's
              smallest member (Inception V3 at 299 px), card against CPU.
 
+17. module_small — a narrow NHWC ResNet V1 symbol
+             (tools/torch_resnet_symbol.py, units [1, 1], widths [16, 32,
+             64]) through Module.fit, b8 at 32 px, fp32, 3 SGD steps, on
+             the card and on the CPU from the same seeded parameters:
+             per-step losses (1e-4), parameters and aux states (1e-3); 6
+             conv1x1_bn_stats launches a step and one fused_sgd_momentum
+             launch per SGD group.
+18. module_train — resnet50_v1(classes=1000, layout="NHWC") traced to a
+             Symbol plus SoftmaxOutput, trained through Module.fit at b128
+             and 224 px in fp32 (TF32 off), SGD lr 0.1 momentum 0.9 wd
+             1e-4, over a seeded synthetic NDArrayIter: 2 warm and 10
+             timed steps, finite losses, exactly 36 conv1x1_bn_stats and 1
+             fused_sgd_momentum launches a step; img/s, step ms, peak
+             memory and a profile of one step (host against device ms,
+             device ms by kind); then, after the counts are read, the
+             step with the executor's conv1x1+BN rewrite against the
+             same graph unfused, in turns: host and device ms of each.
+19. hybrid_train — gluon_train's net and recipe, eager against
+             hybridized (the CachedOp) from the same weights: equal
+             first-step losses, then interleaved windows of steps; the
+             step ms of both.
+20. sym_score — bench.py's b32 scoring pass through the port's graph
+             function: the ResNet-50 predict graph at b32 in bf16 (weights
+             of 2 or more dims bf16, the rest fp32): img/s, and device ms
+             against the call's ms (the busy share); in fp32 the
+             graph equals the eager net (1e-5), and export then
+             SymbolBlock.imports is bit-identical.
+21. mnist   — tools/torch_train_mnist.py (the port's copy of
+             example/image_classification/train_mnist.py), 10 epochs, on
+             the card: its own accuracy assert, one fused_sgd_momentum
+             launch per SGD group.
+22. gluon_layers_hybridized — the gluon_layers cases that are
+             HybridBlocks, hybridized, card against CPU (1e-4), and a user
+             HybridBlock calling F.contrib.flash_attention: LayerNorm and
+             flash attention launch their kernels inside the graphs.
+
+The kernel phase also times conv1x1_bn_stats in fp32 at ResNet-50's 15
+shapes as module_train calls it (the CUDA-core kernel), beside its bound
+and matmul + var_mean.
+
 The kernel phase also holds the SGD kernel's MXNet form (the update of
 Gluon's SGD) against its plain version over ResNet-50's tensor list, in
 fp32 and in multi-precision bf16 with clipping, over 3 calls with a new
@@ -806,13 +846,14 @@ def mobilenet_conv1x1_calls(batch=BATCH, img=IMG):
 
 def conv1x1_per_forward(ops, dev, gen, card, calls=None,
                         phase="kernel_main_shape",
-                        expect="conv1x1_wgmma_kernel"):
+                        expect="conv1x1_wgmma_kernel",
+                        dtype=torch.bfloat16):
     """conv1x1_bn_stats at each shape of one training forward (ResNet-50
-    b128 unless `calls` says otherwise), in bf16 with the weight as a
-    transposed view, checked and timed shape by shape, in turns with
-    `matmul` + `var_mean` (each row emitted), and summed over the
-    forward's calls. `expect`: the kernel the profiler must see at every
-    shape."""
+    b128 unless `calls` says otherwise), in `dtype` (bf16, or fp32 as the
+    Module path runs it) with the weight as a transposed view, checked
+    and timed shape by shape, in turns with `matmul` + `var_mean` (each
+    row emitted), and summed over the forward's calls. `expect`: the
+    kernel the profiler must see at every shape."""
     calls = calls or resnet50_conv1x1_calls()
     per = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0,
                library_device_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0,
@@ -820,7 +861,7 @@ def conv1x1_per_forward(ops, dev, gen, card, calls=None,
                kernels=set())
     for (M, cin, cout), n in calls.items():
         # the weight as the train path passes it: a (Cout, Cin) transposed
-        r = check_conv1x1(ops, dev, M, cin, cout, torch.bfloat16, gen, "t",
+        r = check_conv1x1(ops, dev, M, cin, cout, dtype, gen, "t",
                           expect=expect)
         emit(phase=phase, card=card, calls_per_forward=n, **r)
         for key, src in (("ms", "kernel_ms"), ("device_ms", "device_ms"),
@@ -832,7 +873,7 @@ def conv1x1_per_forward(ops, dev, gen, card, calls=None,
                 else per[key] + n * r[src]
         per["bound_ms"] += n * r["bound_us"] / 1e3
         per["t_bytes"] += n * r["bytes"] / HBM_BYTES_S
-        per["t_ops"] += n * r["flops"] / BF16_FLOP_S
+        per["t_ops"] += n * r["flops"] / r["peak_flop_s"]
         per["err"] = max(per["err"], r["max_abs_err"])
         per["kernels"] |= set(r["kernels"])
     per["kernels"] = sorted(per["kernels"])
@@ -2455,6 +2496,517 @@ def gluon_layers(ops, dev, card, gen):
     return ln_row
 
 
+# ---------------------------------------------------------------------------
+# phases 17-22: Symbol, the executor, CachedOp and the Module API
+# ---------------------------------------------------------------------------
+RESNET_SYMBOL = os.path.join("tools", "torch_resnet_symbol.py")
+MNIST_SCRIPT = os.path.join("tools", "torch_train_mnist.py")
+MNIST_EPOCHS = 10
+MODULE_WARM = 2
+HYBRID = dict(windows=2, steps=5)
+SCORE_BATCH = 32
+
+
+def _step_losses():
+    """A batch-end callback that keeps each batch's metric value and
+    resets the metric: per-step cross-entropy out of Module.fit."""
+    losses = []
+
+    def cb(param):
+        losses.append(param.eval_metric.get()[1])
+        param.eval_metric.reset()
+    return losses, cb
+
+
+def module_small(dev):
+    """A narrow NHWC ResNet V1 symbol (tools/torch_resnet_symbol.py,
+    units [1, 1], widths [16, 32, 64], 10 classes) through Module.fit:
+    b8 at 32 px, fp32, 3 SGD steps, on the card and on the CPU from the
+    same seeded parameters: per-step losses, parameters and aux states
+    agree, and the card ran 6 conv1x1_bn_stats launches a step and one
+    fused_sgd_momentum launch a step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.observability import registry
+    groups = registry.counter("optimizer.fused.groups")
+    resnet_v1_symbol = _load_script(RESNET_SYMBOL).resnet_v1_symbol
+    rng = np.random.RandomState(2)
+    x = rng.randn(24, 32, 32, 3).astype(np.float32)
+    y = (np.arange(24) % 10).astype(np.float32)
+    init = None
+    runs = []
+    for ctx in (mx.cpu(), mx.gpu(0)):
+        with mx.name.NameManager():
+            sym = resnet_v1_symbol(mx, units=(1, 1), filters=(16, 32, 64),
+                                   num_classes=10)
+        it = mx.io.NDArrayIter(x, y, batch_size=8)
+        mod = mx.mod.Module(sym, context=ctx)
+        mod.bind(it.provide_data, it.provide_label)
+        if init is None:
+            mx.random.seed(3)
+            mod.init_params(mx.init.Xavier(magnitude=2.0))
+            init = tuple({k: v.copy() for k, v in d.items()}
+                         for d in mod.get_params())
+        else:
+            mod.init_params(arg_params=init[0], aux_params=init[1])
+        losses, cb = _step_losses()
+        groups0 = groups.get()
+        ops.reset_launch_counts()
+        mod.fit(it, num_epoch=1, eval_metric="ce", batch_end_callback=cb,
+                optimizer="sgd", optimizer_params={
+                    "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+        args, auxs = mod.get_params()
+        runs.append((losses, args, auxs, ops.launch_counts(),
+                     groups.get() - groups0))
+    (lh, ah, xh, nh, _), (lc, ac, xc, nc, sgd_groups) = runs
+    loss_err = max(abs(a - b) for a, b in zip(lc, lh))
+    param_err = max(np.abs(ac[k].asnumpy() - ah[k].asnumpy()).max()
+                    for k in ah)
+    aux_err = max(np.abs(xc[k].asnumpy() - xh[k].asnumpy()).max()
+                  for k in xh)
+    loss_tol, param_tol = 1e-4, 1e-3
+    if len(lc) != 3 or not np.isfinite(lc).all() or loss_err > loss_tol \
+            or param_err > param_tol or aux_err > param_tol:
+        fail("module_small: card vs CPU losses %s vs %s, max param err %g, "
+             "aux err %g (tol %g, %g)" % (lc, lh, param_err, aux_err,
+                                          loss_tol, param_tol))
+    # per forward: stage 1's and stage 2's a, c and shortcut pairs; one
+    # SGD launch per group the FusedUpdater forms (Module gives biases
+    # and betas no weight decay: two groups a step)
+    if nc["conv1x1_bn_stats"] != 6 * 3 or \
+            nc["fused_sgd_momentum"] != sgd_groups or sgd_groups < 3 or \
+            any(nh.values()):
+        fail("module_small: launches card %s (%d SGD groups), CPU %s; want "
+             "18 conv1x1_bn_stats and one fused_sgd_momentum per SGD group "
+             "on the card, none on the CPU" % (nc, sgd_groups, nh))
+    emit(phase="module_small", losses_card=lc, losses_cpu=lh,
+         loss_max_abs_err=loss_err, param_max_abs_err=float(param_err),
+         aux_max_abs_err=float(aux_err), loss_tol=loss_tol,
+         param_tol=param_tol, launches=nc, sgd_groups=sgd_groups)
+
+
+def _resnet50_symbol(mx, dev):
+    """resnet50_v1(classes=1000, layout="NHWC") traced to a Symbol, with
+    a SoftmaxOutput head."""
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    with mx.name.NameManager():
+        net = resnet50_v1(classes=1000, layout="NHWC", device=dev)
+        out = net(mx.sym.var("data"))
+        return net, mx.sym.SoftmaxOutput(out, name="softmax")
+
+
+def module_train(dev, card):
+    """ResNet-50 v1 traced to a Symbol and trained through Module.fit:
+    b128 at 224 px, fp32 (TF32 off), SGD lr 0.1 momentum 0.9 wd 1e-4,
+    over a seeded synthetic NDArrayIter of 12 batches: 2 warm steps and
+    10 timed. Returns the launch counts of the 12 steps."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, sym = _resnet50_symbol(mx, dev)
+    n_steps = MODULE_WARM + TRAIN_STEPS
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((BATCH * n_steps, IMG, IMG, 3),
+                            dtype=np.float32)
+    y = rng.integers(0, 1000, BATCH * n_steps).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=BATCH)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind(it.provide_data, it.provide_label)
+    mx.random.seed(0)
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2))
+    n_params = sum(int(np.prod(a[0].shape))
+                   for a in mod._exec_group.param_arrays)
+    setup_s = time.perf_counter() - t0
+    losses, cb = _step_losses()
+    stamps = []
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, with every launch counter at 0 just before it
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=1, eval_metric="ce",
+            batch_end_callback=[cb, lambda _: stamps.append(
+                time.perf_counter())],
+            optimizer="sgd", optimizer_params={
+                "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if len(losses) != n_steps or not np.isfinite(losses).all():
+        fail("module_train: %d steps, losses %s" % (len(losses), losses))
+    if launches["conv1x1_bn_stats"] != 36 * n_steps or \
+            launches["fused_sgd_momentum"] != n_steps:
+        fail("module_train: launches %s over %d steps, want 36 "
+             "conv1x1_bn_stats and 1 fused_sgd_momentum a step"
+             % (launches, n_steps))
+    timed = stamps[-1] - stamps[MODULE_WARM - 1]
+    gaps = np.diff(stamps[MODULE_WARM - 1:])
+    # where one step's time goes
+    batch = next(iter(it))
+
+    def step():
+        mod.forward_backward(batch)
+        mod.update()
+        mod.get_outputs()[0].asnumpy()
+    step()
+    t = time.perf_counter()
+    step()
+    one_step_ms = (time.perf_counter() - t) * 1e3
+    events = device_events(step, 1)
+    dev_us = {k: us for k, (us, _) in events.items()}
+    profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
+    profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+    profile["conv1x1_kernels"] = {k[:90]: c for k, (_, c) in events.items()
+                                  if "conv1x1_" in k}
+    rewrite = rewrite_cost(mod, step)
+    step_ms = timed / TRAIN_STEPS * 1e3
+    img_s = BATCH * TRAIN_STEPS / timed
+    emit(phase="module_train", card=card,
+         model="ResNet-50 v1, NHWC, traced to a Symbol + SoftmaxOutput, "
+         "seeded random weights (Xavier gaussian in 2)", params=n_params,
+         batch=BATCH, image=IMG, dtype="fp32 (TF32 off)", steps=n_steps,
+         warm_steps=MODULE_WARM, timed_steps=TRAIN_STEPS, img_s=img_s,
+         step_ms=step_ms, step_ms_median=float(np.median(gaps)) * 1e3,
+         step_ms_p90=percentile(gaps, 90) * 1e3, wall_s=wall,
+         mfu=FLOPS_PER_IMG * img_s / FP32_FLOP_S, peak_mem_gb=peak_gb,
+         setup_s=setup_s, losses=losses, launches=launches,
+         profile_one_step=profile, conv1x1_rewrite=rewrite)
+    return launches
+
+
+def rewrite_cost(mod, step, windows=3, steps=3):
+    """What the executor's conv1x1+BN rewrite costs a Module step: the
+    bound executor's training graph as built, against the same graph
+    built with no fusion plan (every pair a cuDNN convolution and a
+    BatchNorm), in turns on the same parameters: the host ms a step of
+    each window, the device ms of one step of each and its device ms by
+    kind. Runs after the main path's launch counts are read."""
+    from unittest import mock
+    from mxnet_tpu_torch import graph
+    ex = mod._exec_group.exec_
+    fns = {"fused": ex._fns["train"]}
+    with mock.patch.object(graph, "_fusion_plan", lambda *a: {}):
+        fns["unfused"] = graph.build_graph_fn(ex._symbol._entries,
+                                              "train")[0]
+    if fns["unfused"].fused_pairs != 0 or fns["fused"].fused_pairs != 36:
+        fail("module_train: fused pairs %d and %d, want 36 and 0" % (
+            fns["fused"].fused_pairs, fns["unfused"].fused_pairs))
+    ms = {k: [] for k in fns}
+    dev = {}
+    try:
+        for _ in range(windows):
+            for k, fn in fns.items():
+                ex._fns["train"] = fn
+                step()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    step()
+                ms[k].append((time.perf_counter() - t0) * 1e3 / steps)
+        kinds = {}
+        for k, fn in fns.items():
+            ex._fns["train"] = fn
+            dev[k] = device_ms(step, n=1, tries=6)
+            kinds[k] = by_kind(profiled(step, 1), 1)
+    finally:
+        ex._fns["train"] = fns["fused"]
+    return dict(step_ms={k: v for k, v in ms.items()},
+                step_ms_median={k: float(np.median(v))
+                                for k, v in ms.items()},
+                device_ms=dev, device_ms_by_kind=kinds, windows=windows,
+                steps_per_window=steps)
+
+
+def hybrid_train(dev, card):
+    """gluon_train's net and recipe (ResNet-50 v1 NHWC b128,
+    cast("bfloat16"), multi-precision SGD), eager against hybridized,
+    from the same seeded weights: the first step's losses equal, then
+    interleaved windows of steps, eager and hybridized in turns. Returns
+    the hybridized net's launch counts over its timed steps."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3).astype("float32")) \
+        .to(dev).to(torch.bfloat16)
+    y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")).to(dev)
+    runs = {}
+    for mode in ("eager", "hybrid"):
+        mx.random.seed(0)
+        net = resnet50_v1(layout="NHWC", device=dev)
+        net.initialize()
+        net.cast("bfloat16")
+        if mode == "hybrid":
+            net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "multi_precision": True,
+            "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=5,
+                                                            factor=0.5)})
+        runs[mode] = [net, trainer, mx.gluon.loss.SoftmaxCrossEntropyLoss()]
+    first = {m: float(gluon_loop(*runs[m], x, y)) for m in runs}
+    if first["eager"] != first["hybrid"] or not np.isfinite(
+            first["eager"]):
+        fail("hybrid_train: first-step losses eager %r, hybridized %r"
+             % (first["eager"], first["hybrid"]))
+    gluon_loop(*runs["hybrid"], x, y).cpu()
+    gluon_loop(*runs["eager"], x, y).cpu()
+    times = {"eager": [], "hybrid": []}
+    launches = {}
+    for _ in range(HYBRID["windows"]):
+        for mode in ("eager", "hybrid"):
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = torch.stack([gluon_loop(*runs[mode], x, y) for _ in
+                                  range(HYBRID["steps"])]).cpu().numpy()
+            times[mode].append((time.perf_counter() - t0) * 1e3
+                               / HYBRID["steps"])
+            if not np.isfinite(losses).all():
+                fail("hybrid_train: %s losses %s" % (mode, losses))
+            counts = ops.launch_counts()
+            for k, v in counts.items():
+                launches.setdefault(mode, {}).setdefault(k, 0)
+                launches[mode][k] += v
+    steps = HYBRID["windows"] * HYBRID["steps"]
+    for mode in runs:
+        if launches[mode]["conv1x1_bn_stats"] != 36 * steps or \
+                launches[mode]["fused_sgd_momentum"] != steps:
+            fail("hybrid_train: %s launches %s over %d steps, want 36 "
+                 "conv1x1_bn_stats and 1 fused_sgd_momentum a step"
+                 % (mode, launches[mode], steps))
+    net = runs["hybrid"][0]
+    if net._cached_op is None:
+        fail("hybrid_train: the hybridized net ran no CachedOp")
+    emit(phase="hybrid_train", card=card, model="ResNet-50 v1, NHWC, "
+         "cast(bfloat16), multi-precision SGD (gluon_train's recipe)",
+         batch=BATCH, image=IMG, first_loss=first,
+         windows=HYBRID["windows"], steps_per_window=HYBRID["steps"],
+         step_ms_eager=times["eager"], step_ms_hybrid=times["hybrid"],
+         step_ms_eager_median=float(np.median(times["eager"])),
+         step_ms_hybrid_median=float(np.median(times["hybrid"])),
+         graph_nodes=len(net._cached_graph[1].get_internals().list_outputs()),
+         launches=launches)
+    return launches["hybrid"]
+
+
+def sym_score(dev, card):
+    """bench.py's b32 scoring pass through the port's graph function: the
+    ResNet-50 predict graph (the net traced to a Symbol, then
+    graph.build_graph_fn) at b32 in bf16, weights of 2 or more dims in
+    bf16, the rest fp32: img/s. In fp32 the graph's output equals the
+    eager net's; export then SymbolBlock.imports gives bit-identical
+    outputs."""
+    import gc
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.graph import build_graph_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    mx.random.seed(0)
+    net, _ = _resnet50_symbol(mx, dev)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2))
+    with mx.name.NameManager():
+        out_sym = net(mx.sym.var("data"))
+    fn = build_graph_fn(out_sym._entries, "predict")[0]
+    params = {n: p._graph_value().detach() for n, p in
+              net.collect_params().items()}
+    aux_names = set(out_sym.list_auxiliary_states())
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(SCORE_BATCH, IMG, IMG, 3)
+                         .astype("float32")).to(dev)
+    with torch.no_grad():
+        # fp32: the graph against the eager net
+        args = {n: v for n, v in params.items() if n not in aux_names}
+        aux = {n: v for n, v in params.items() if n in aux_names}
+        got = fn({**args, "data": x}, aux)[0][0]
+        want = net(x)
+        fp32_err = (got - want).abs().max().item() / max(
+            1.0, want.abs().max().item())
+        if not torch.isfinite(got).all() or fp32_err > 1e-5:
+            fail("sym_score: the fp32 graph against eager, err %g" %
+                 fp32_err)
+        # bf16 scoring, as bench.py sets it up
+        bf = {n: (v.to(torch.bfloat16) if v.dim() >= 2 else v)
+              for n, v in args.items()}
+        xb = x.to(torch.bfloat16)
+        score = lambda: fn({**bf, "data": xb}, aux)[0][0]  # noqa: E731
+        out = score()
+        if not torch.isfinite(out.float()).all() or \
+                tuple(out.shape) != (SCORE_BATCH, 1000):
+            fail("sym_score: bf16 scores %s, finite %s" % (
+                tuple(out.shape), bool(torch.isfinite(out.float()).all())))
+        ms = cuda_ms(score, iters=30)
+        # a profile of 2 calls: the profiler drops records of longer
+        # windows of this graph's ~500 launches a call
+        dev_ms = device_ms(score, n=2, tries=20)
+    # export, then SymbolBlock.imports: bit-identical
+    net.hybridize()
+    ref = net(x).detach()
+    with tempfile.TemporaryDirectory() as tmp:
+        net.export(os.path.join(tmp, "r50"))
+        blk = mx.gluon.SymbolBlock.imports(
+            os.path.join(tmp, "r50-symbol.json"), ["data"],
+            os.path.join(tmp, "r50-0000.params"), ctx=mx.gpu(0))
+    back = blk(x).detach()
+    same = torch.equal(ref, back)
+    if not same:
+        fail("sym_score: export then SymbolBlock.imports differs by %g"
+             % (ref - back).abs().max().item())
+    emit(phase="sym_score", card=card, model="ResNet-50 v1 NHWC predict "
+         "graph (build_graph_fn), bf16 weights of ndim >= 2, fp32 BN",
+         batch=SCORE_BATCH, image=IMG, img_s=SCORE_BATCH / ms * 1e3,
+         ms=ms, device_ms=dev_ms,
+         device_busy_share=dev_ms / ms if dev_ms else None,
+         fp32_graph_vs_eager_err=fp32_err,
+         export_imports_bit_identical=same)
+
+
+def mnist(ops, dev, card):
+    """tools/torch_train_mnist.py, the port's copy of
+    example/image_classification/train_mnist.py (LeNet through
+    Module.fit, 10 epochs on its synthetic data, SGD momentum 0.9), on the
+    card: its own accuracy assert, and one fused_sgd_momentum launch per
+    SGD group the FusedUpdater formed (weights, and the biases Module
+    gives no weight decay). Returns the launch counts of the script's
+    run."""
+    import contextlib
+    import io
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.observability import registry
+    groups = registry.counter("optimizer.fused.groups")
+    script = _load_script(MNIST_SCRIPT)
+    out = io.StringIO()
+    argv = sys.argv
+    steps = []
+    real_update = mx.mod.Module.update
+
+    def counted(self):
+        real_update(self)
+        steps.append(1)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 10 epochs: the recipe (Uniform(0.01) init, momentum 0.9) leaves
+        # its plateau at an epoch that varies with the initial weights
+        # and, on the card, with cuDNN's nondeterministic reductions (6
+        # epochs reached 0.63-0.88); the JAX package's own test of the
+        # example runs 8
+        sys.argv = [MNIST_SCRIPT, "--data-dir", os.path.join(tmp, "none"),
+                    "--epochs", str(MNIST_EPOCHS)]
+        mx.mod.Module.update = counted
+        groups0 = groups.get()
+        # cuDNN's deterministic algorithms: one trajectory per seed
+        torch.backends.cudnn.deterministic = True
+        # the main path, with every launch counter at 0 just before it
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                script.main()
+        except AssertionError as e:
+            fail("mnist: the example's assert failed: %s\n%s"
+                 % (e, out.getvalue()))
+        finally:
+            torch.backends.cudnn.deterministic = False
+            mx.mod.Module.update = real_update
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    sgd_groups = groups.get() - groups0
+    lines = out.getvalue().splitlines()
+    if lines[-1:] != ["MNIST_EXAMPLE_OK"] or \
+            launches["fused_sgd_momentum"] != sgd_groups or \
+            sgd_groups < len(steps) or launches["conv1x1_bn_stats"]:
+        fail("mnist: %d steps, %d SGD groups, launches %s, output %s"
+             % (len(steps), sgd_groups, launches, lines[-3:]))
+    emit(phase="mnist", card=card, script=MNIST_SCRIPT, steps=len(steps),
+         sgd_groups=sgd_groups, wall_s=wall,
+         output=[ln for ln in lines if "accuracy" in ln], launches=launches)
+    return launches
+
+
+def _flash_block(g):
+    """A user HybridBlock whose hybrid_forward calls
+    F.contrib.flash_attention on projections of its input."""
+    class Attention(g.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.proj = g.nn.Dense(3 * 64, flatten=False)
+
+        def hybrid_forward(self, F, x):
+            qkv = self.proj(x)                               # (B, T, 192)
+            qkv = F.reshape(qkv, shape=(0, 0, 3, 2, 32))
+            qkv = F.transpose(qkv, axes=(2, 0, 3, 1, 4))      # (3,B,H,T,D)
+            q, k, v = (F.squeeze(F.slice_axis(qkv, axis=0, begin=i,
+                                              end=i + 1), axis=0)
+                       for i in range(3))
+            return F.contrib.flash_attention(q, k, v, causal=True)
+    return Attention()
+
+
+def gluon_layers_hybridized(ops, dev, card):
+    """Every hybridizable gluon.nn layer of the port (the gluon_layers
+    cases but Sequential and Lambda), hybridized, forward and backward on
+    the card against the same hybridized block on the CPU (the same
+    weights), and a user HybridBlock calling F.contrib.flash_attention.
+    LayerNorm and flash attention run on their kernels: the phase counts
+    their launches. Returns them."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import gluon, nd
+    tol = 1e-4
+    errs, rng = {}, np.random.RandomState(5)
+    cases = [c for c in _layer_cases(gluon)
+             if c[0] not in ("Sequential", "Lambda")]
+    cases.append(("user_flash_attention", lambda: _flash_block(gluon),
+                  (2, 64, 16)))
+    ops.reset_launch_counts()
+    for name, make, shape in cases:
+        x = (rng.randint(0, 10, (3, 4)).astype(np.float32)
+             if shape == "indices" else rng.randn(*shape).astype(np.float32))
+        nets = []
+        for ctx in (mx.cpu(), mx.gpu(0)):
+            with ctx:
+                nets.append(make())
+        cpu_net, card_net = nets
+        with mx.cpu():
+            cpu_net.initialize(mx.init.Uniform(0.5))
+            probe = cpu_net(nd.array(x))
+        card_net.load_parameters(
+            {k: p.data().detach() for k, p in
+             cpu_net._collect_params_with_prefix().items()}, ctx=mx.gpu(0))
+        cpu_net.hybridize()
+        card_net.hybridize()
+        head = rng.randn(*probe.shape).astype(np.float32)
+        a = _run_layer(mx, cpu_net, x, head, mx.cpu())
+        b = _run_layer(mx, card_net, x, head, mx.gpu(0))
+        if card_net._cached_op is None:
+            fail("gluon_layers_hybridized: %s ran no CachedOp" % name)
+        scale = max(1.0, a[0].abs().max().item())
+        err = (a[0] - b[0]).abs().max().item() / scale
+        if a[1] is not None:
+            err = max(err, (a[1] - b[1]).abs().max().item() / scale)
+        for k in a[2]:
+            err = max(err, (a[2][k] - b[2][k]).abs().max().item() /
+                      max(1.0, a[2][k].abs().max().item()))
+        if not np.isfinite(err) or err > tol or a[2].keys() != b[2].keys():
+            fail("gluon_layers_hybridized: %s card vs CPU err %g > %g"
+                 % (name, err, tol))
+        errs[name] = err
+    launches = ops.launch_counts()
+    if launches["layer_norm"] < 1 or launches["flash_attention"] < 1:
+        fail("gluon_layers_hybridized: launches %s, want layer_norm and "
+             "flash_attention" % launches)
+    emit(phase="gluon_layers_hybridized", card=card, layers=len(errs),
+         tol=tol, max_err=max(errs.values()), errs=errs, launches=launches)
+    return launches
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -2534,6 +3086,10 @@ def main():
     # dropping records of later large launches
     conv1x1_paths(ops, dev, gen, card)
     conv_per = conv1x1_per_forward(ops, dev, gen, card)
+    # the Module path's fp32 calls (module_train): the CUDA-core kernel
+    conv_module = conv1x1_per_forward(
+        ops, dev, gen, card, phase="kernel_module_shape",
+        expect="conv1x1_simt_kernel", dtype=torch.float32)
 
     # phases 4, 5: the model
     small_model_check(dev)
@@ -2554,19 +3110,32 @@ def main():
     cifar_launches = gluon_cifar(ops, dev, card)
     zoo_launches, mobilenet = zoo_train(ops, dev, card, gen)
     ln_gluon = gluon_layers(ops, dev, card, gen)
+    # phases 17-22: Symbol, the executor, CachedOp and the Module API
+    module_small(dev)
+    module_launches = module_train(dev, card)
+    hybrid_launches = hybrid_train(dev, card)
+    sym_score(dev, card)
+    mnist_launches = mnist(ops, dev, card)
+    hyb_layers = gluon_layers_hybridized(ops, dev, card)
     by_path = {name: {"train": train_launches[name],
                       "gluon_train": gluon_launches[name],
                       "nd_gpt": gpt_nd["launches"][name],
                       "gluon_cifar": cifar_launches[name],
-                      "zoo_train": zoo_launches[name]}
+                      "zoo_train": zoo_launches[name],
+                      "module_train": module_launches[name],
+                      "hybrid_train": hybrid_launches[name],
+                      "mnist": mnist_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
                              "nd_gpt": gpt_nd["launches"]["layer_norm"],
-                             "gluon_layers": ln_gluon["launches"]}
+                             "gluon_layers": ln_gluon["launches"],
+                             "gluon_layers_hybridized":
+                                 hyb_layers["layer_norm"]}
     by_path["flash_attention"] = {
         "serve": launches["flash_attention"],
         "nd_flash": flash_nd["launches"],
-        "nd_gpt": gpt_nd["launches"]["flash_attention"]}
+        "nd_gpt": gpt_nd["launches"]["flash_attention"],
+        "gluon_layers_hybridized": hyb_layers["flash_attention"]}
     launches.update({name: sum(v.values()) for name, v in by_path.items()})
 
     # the main path's own shapes in its serving dtype (fp32)
@@ -2683,7 +3252,21 @@ def main():
             bound_by="bytes" if mobilenet["t_bytes"] >= mobilenet["t_ops"]
             else "operations", library_ms=mobilenet["library_ms"],
             library_device_ms=mobilenet["library_device_ms"],
-            kernels=mobilenet["kernels"])))
+            kernels=mobilenet["kernels"]),
+        module=dict(
+            shape="ResNet-50 b128 NHWC forward through Module, %d calls, "
+            "%d shapes" % (conv_module["calls"], conv_module["shapes"]),
+            dtype="fp32", per="module_train forward",
+            launches=by_path["conv1x1_bn_stats"]["module_train"],
+            max_abs_err=conv_module["err"], ms=conv_module["ms"],
+            device_ms=conv_module["device_ms"],
+            plain_ms=conv_module["plain_ms"],
+            bound_ms=conv_module["bound_ms"],
+            bound_by="bytes" if conv_module["t_bytes"] >=
+            conv_module["t_ops"] else "operations",
+            library_ms=conv_module["library_ms"],
+            library_device_ms=conv_module["library_device_ms"],
+            kernels=conv_module["kernels"])))
     emit(kernels=kernels)
     print(card_line(), flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -37,11 +37,25 @@ The outermost call runs under
 ``torch.set_grad_enabled(autograd.is_recording())``, so a forward
 outside ``autograd.record()`` builds no graph.
 
-``hybridize()`` is accepted and changes nothing yet: every block runs
-eagerly (the Symbol/CachedOp slice makes it trace and replay).
+Hybridizing. ``hybridize()`` makes a HybridBlock trace itself once to a
+`Symbol`, on the first call, and replay that graph as a `CachedOp` on
+every call after (block.py:298-506 of the JAX package): a user block's
+``hybrid_forward(F, ...)`` runs with ``F`` = `mxnet_tpu_torch.symbol`
+and Symbol inputs, and each layer of this package gives its graph with
+``_sym_forward``, which builds the nodes the JAX package's
+``hybrid_forward`` builds, names and params alike, so `export` writes
+the JAX package's JSON. Parameters feed the graph in the JAX package's
+layouts (an NHWC convolution weight as its (O, kh, kw, I) view). A
+parameter whose dims are still unknown takes them from the graph's
+shape inference at the first call; a user block that is not hybridized
+does the same in its first eager forward. `export` writes the graph
+and its parameters; `SymbolBlock` (and `SymbolBlock.imports`) runs a
+graph file, either package's, as a block.
 """
 from __future__ import annotations
 
+import copy
+import os
 import re
 import threading
 import warnings
@@ -52,13 +66,17 @@ from torch import nn
 from .. import autograd
 from .. import name as _name
 from .. import ndarray as _nd
+from .. import symbol as _sym
 from ..base import MXNetError
+from ..cached_op import CachedOp
 from ..context import resolve_device
+from ..graph import infer_structs
 from ..ndarray import NDArray
+from ..symbol import Symbol
 from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, _as_tensor, _known, _load_file)
 
-__all__ = ["Block", "HybridBlock", "collect_params"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock", "collect_params"]
 
 _local = threading.local()
 _PACKAGE = __name__.split(".")[0] + "."
@@ -75,6 +93,7 @@ class _Scope:
         self._empty = empty
         self._counts = {}
         self._old = None
+        self._names = None
 
     def next_prefix(self, hint):
         n = self._counts.get(hint, 0)
@@ -86,10 +105,15 @@ class _Scope:
             return self
         self._old = getattr(_local, "scope", None)
         _local.scope = self
+        # symbols made in the scope are named under the block's prefix
+        self._names = _name.Prefix(self.prefix)
+        self._names.__enter__()
         return self
 
     def __exit__(self, *exc):
         if not self._empty:
+            self._names.__exit__(*exc)
+            self._names = None
             _local.scope = self._old
 
 
@@ -145,9 +169,48 @@ def _wrap(x):
     return x
 
 
-def _has_nd(args, kwargs):
-    return any(isinstance(a, NDArray) or (
-        isinstance(a, (list, tuple)) and any(isinstance(v, NDArray)
+def _tree_flatten(tree, where):
+    """(leaves, spec) of a nested list of tensors, NDArrays or Symbols
+    (block.py:83). A multi-output Symbol leaf stands for as many values
+    as it has outputs, which the spec records."""
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, (NDArray, torch.Tensor)):
+            leaves.append(node)
+            return 1
+        if isinstance(node, Symbol):
+            leaves.append(node)
+            n = len(node.list_outputs())
+            return n if n > 1 else 1
+        if not isinstance(node, (list, tuple)):
+            raise TypeError(
+                "HybridBlock %s: expected NDArray, Symbol, or a (nested) "
+                "list of them, found %r" % (where, type(node).__name__))
+        return tuple(walk(child) for child in node)
+
+    return leaves, walk(tree)
+
+
+def _tree_unflatten(values, spec):
+    """The nested structure of `spec` over the flat `values` (block.py:111);
+    a multi-value entry becomes a list."""
+    it = iter(values)
+
+    def build(s):
+        if isinstance(s, tuple):
+            return [build(child) for child in s]
+        if s == 1:
+            return next(it)
+        return [next(it) for _ in range(s)]
+
+    return build(spec)
+
+
+def _has(kind, args, kwargs):
+    """Whether an argument, or an item of a list argument, is a `kind`."""
+    return any(isinstance(a, kind) or (
+        isinstance(a, (list, tuple)) and any(isinstance(v, kind)
                                              for v in a))
                for a in list(args) + list(kwargs.values()))
 
@@ -282,6 +345,10 @@ class Block(nn.Module):
             shapes = None
             for attr, p in pending:
                 if not _known(p._shape):
+                    # the JAX package traces the block here, which makes
+                    # the variable with the unknown dims (its export shows
+                    # them); make it at the same moment
+                    p.var()
                     if shapes is None:
                         shapes = self._infer_shapes(*args)
                     p.shape = shapes[attr]
@@ -324,8 +391,8 @@ class Block(nn.Module):
             p.cast(dtype)
 
     def hybridize(self, active=True, **kwargs):
-        """Accepted for Gluon's API; every block runs eagerly until the
-        Symbol/CachedOp slice is ported."""
+        """Activate (or deactivate) hybridizing in every HybridBlock of
+        this block (block.py:442)."""
         for child in self.children():
             if isinstance(child, Block):
                 child.hybridize(active, **kwargs)
@@ -407,8 +474,14 @@ class Block(nn.Module):
         return out
 
     def _dispatch(self, args, kwargs):
+        if _has(Symbol, args, kwargs):
+            pvars = {k: p.var() for k, p in self._attr_params.items()}
+            with self._naming:
+                return self._symbolic(*args, **kwargs, **pvars)
+        if getattr(self, "_active", False):
+            return self._call_cached_op(args, kwargs)
         mode = _forward_mode(type(self))
-        nd_in = _has_nd(args, kwargs)
+        nd_in = _has(NDArray, args, kwargs)
         if mode == "tensor":
             out = self.forward(*_unwrap(args), **{
                 k: _unwrap(v) for k, v in kwargs.items()})
@@ -421,6 +494,40 @@ class Block(nn.Module):
     def forward(self, *args):
         """Override to implement the computation (on NDArrays)."""
         raise NotImplementedError
+
+    def _symbolic(self, *args, **kwargs):
+        """This block's graph, on Symbol inputs: ``hybrid_forward`` with
+        F = `symbol` for a user's block, ``_sym_forward`` for a layer of
+        this package."""
+        if _forward_mode(type(self)) == "hybrid":
+            return self.hybrid_forward(_sym, *args, **kwargs)
+        if not isinstance(self, HybridBlock):
+            raise MXNetError("%s is not a HybridBlock: only a HybridBlock "
+                             "traces to a Symbol" % type(self).__name__)
+        return self._sym_forward(_sym, *args, **kwargs)
+
+    def _sym_forward(self, F, *args, **params):
+        """The graph of a layer of this package (F = `symbol`, `params`
+        its parameters' variables): by default its forward, which then
+        calls its children on Symbols."""
+        return self.forward(*args)
+
+    def _adopt_graph_shapes(self, shapes):
+        """Finish the deferred init of this block's parameters with the
+        shapes {name: shape in the graph's layout} a graph inferred."""
+        pending = [p for p in self._attr_params.values()
+                   if p._tensor() is None]
+        for p in pending:
+            if not _known(p._shape) and p.name in shapes:
+                p.shape = p._from_graph_shape(shapes[p.name])
+        if pending:
+            self._shapes_known()
+        for p in pending:
+            p._finish_deferred_init()
+
+    def _shapes_known(self):
+        """Called when the block's parameter shapes have been filled in
+        from a graph, before their tensors are made."""
 
     def summary(self, *inputs):
         """Print each block's name, type, output shape (when `inputs`
@@ -462,7 +569,17 @@ class HybridBlock(Block):
     """A block whose children are all HybridBlocks (block.py:331). A
     subclass that defines ``hybrid_forward(self, F, x, *args,
     **params)`` gets ``F`` = `mxnet_tpu_torch.ndarray`, NDArray inputs
-    and its attribute parameters as NDArrays (block.py:522-546)."""
+    and its attribute parameters as NDArrays (block.py:522-546); once
+    hybridized, F = `mxnet_tpu_torch.symbol` and Symbols, traced once."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._flags = []
+        self._cached_op = None
+        self._cached_graph = ()
+        self._in_format = self._out_format = None
+        self._binding_plan = None
 
     def _check_child(self, block):
         if not isinstance(block, HybridBlock):
@@ -470,6 +587,156 @@ class HybridBlock(Block):
                 "every child of a HybridBlock must itself be hybridizable; "
                 "%r is a %s (use HybridSequential rather than Sequential "
                 "for containers)" % (block.name, type(block).__name__))
+        self._clear_cached_op()
+
+    def _clear_cached_op(self):
+        self._cached_graph = ()
+        self._cached_op = None
+
+    def hybridize(self, active=True, **kwargs):
+        """Trace this block and its children to one graph at the next
+        call and replay it after (block.py:298)."""
+        self._active = active
+        self._flags = list(kwargs.items())
+        self._clear_cached_op()
+        if active and (self._gluon_hooks or self._gluon_pre_hooks):
+            warnings.warn("Forward hooks will not be invoked in "
+                          "hybridized mode.")
+        super().hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
+
+    # -- the traced graph (block.py:360-470) ------------------------------
+    def _get_graph(self, *args):
+        """Trace once with Symbol inputs named ``data`` (``data0``, ...);
+        cache the (input variables, grouped outputs) pair."""
+        if not self._cached_graph:
+            leaves, self._in_format = _tree_flatten(args, "input")
+            names = (["data"] if len(leaves) == 1
+                     else ["data%d" % i for i in range(len(leaves))])
+            tracers = [_sym.var(n) for n in names]
+            nested = _tree_unflatten(tracers, self._in_format)
+            pvars = {k: p.var() for k, p in self._attr_params.items()}
+            with self._naming:
+                out = self._symbolic(*nested, **pvars)
+            out_leaves, self._out_format = _tree_flatten(out, "output")
+            self._cached_graph = tracers, _sym.Group(out_leaves)
+        return self._cached_graph
+
+    def _build_cache(self, *args):
+        """The CachedOp of the traced graph, and where each of its inputs
+        comes from at call time: a forward argument or a parameter
+        (block.py:383)."""
+        tracers, out = self._get_graph(*args)
+        slot_of = {t.name: i for i, t in enumerate(tracers)}
+        params = self.collect_params()
+        graph_inputs = out.list_inputs()
+        for name in graph_inputs:
+            if name not in slot_of and name not in params:
+                raise MXNetError(
+                    "HybridBlock graph wants input %r, which is neither a "
+                    "forward argument nor a collected Parameter" % name)
+        wanted = set(graph_inputs)
+        idle_data = sorted(i for n, i in slot_of.items() if n not in wanted)
+        if idle_data:
+            warnings.warn(
+                "forward argument(s) %s of this HybridBlock do not reach "
+                "the traced computation" % idle_data, stacklevel=4)
+        idle_params = sorted(n for n in params if n not in wanted)
+        if idle_params:
+            warnings.warn(
+                "Parameter(s) %s do not reach the traced computation"
+                % ", ".join(idle_params), stacklevel=4)
+        self._binding_plan = [
+            ("data", slot_of[name]) if name in slot_of
+            else ("param", params[name])
+            for name in out.list_arguments() + out.list_auxiliary_states()]
+        self._cached_op = CachedOp(out, self._flags)
+
+    def _graph_shapes(self, *args):
+        """{graph input name: shape} that the traced graph infers from
+        `args` (their shapes and dtypes)."""
+        tracers, out = self._get_graph(*args)
+        leaves, _ = _tree_flatten(args, "input")
+        known = {t.name: (tuple(x.shape), x.dtype if isinstance(
+            x, torch.Tensor) else x._data.dtype)
+            for t, x in zip(tracers, leaves)}
+        var_structs, _ = infer_structs(out._entries, known)
+        return {n: tuple(s.shape) for n, s in var_structs.items()
+                if s is not None}
+
+    def _deferred_infer_shape(self, *args):
+        try:
+            shapes = self._graph_shapes(*args)
+        except Exception as e:  # noqa: BLE001 — the reference's message
+            raise ValueError(
+                "Deferred initialization failed because shape cannot be "
+                "inferred. {}".format(e)) from None
+        for blk in self._blocks():
+            blk._adopt_graph_shapes(shapes)
+
+    def _infer_shapes(self, *args):
+        """The shapes of this block's own parameters, from its graph
+        (a user block whose parameter has unknown dims)."""
+        shapes = self._graph_shapes(*args)
+        return {attr: p._from_graph_shape(shapes[p.name])
+                for attr, p in self._attr_params.items()
+                if p.name in shapes}
+
+    def infer_shape(self, *args):
+        """Fill in every parameter's shape from the inputs `args`
+        (block.py:858)."""
+        shapes = self._graph_shapes(*args)
+        for p in self.collect_params().values():
+            if p.name in shapes:
+                p.shape = p._from_graph_shape(shapes[p.name])
+
+    def _bind_plan(self, leaves):
+        return [leaves[src] if kind == "data" else src._graph_value()
+                for kind, src in self._binding_plan]
+
+    def _call_cached_op(self, args, kwargs):
+        """Run the cached graph on `args` (block.py:430), type in, type
+        out: NDArrays give NDArrays, tensors give tensors."""
+        if kwargs:
+            raise MXNetError("a hybridized block takes its inputs "
+                             "positionally, got %s" % sorted(kwargs))
+        nd_in = _has(NDArray, args, kwargs)
+        args = _unwrap(args)
+        if self._cached_op is None:
+            self._build_cache(*args)
+        leaves, fmt = _tree_flatten(args, "input")
+        if fmt != self._in_format:
+            raise MXNetError(
+                "HybridBlock called with input structure %r; traced with %r"
+                % (fmt, self._in_format))
+        try:
+            bound = self._bind_plan(leaves)
+        except DeferredInitializationError:
+            self._deferred_infer_shape(*args)
+            bound = self._bind_plan(leaves)
+        out = _tree_unflatten(self._cached_op.run(bound), self._out_format)
+        return _wrap(out) if nd_in else out
+
+    def export(self, path, epoch=0):
+        """Write ``path-symbol.json`` (the traced graph) and
+        ``path-%04d.params`` (its parameters as ``arg:``/``aux:``
+        entries, in the JAX package's layouts), which `SymbolBlock`, the
+        Module API and the JAX package load (block.py:506)."""
+        if not self._cached_graph:
+            raise RuntimeError(
+                "Please first call block.hybridize() and then run forward "
+                "with this block at least once before calling export.")
+        sym = self._cached_graph[1]
+        sym.save("%s-symbol.json" % path)
+        kind_of = {n: "arg" for n in sym.list_arguments()}
+        kind_of.update((n, "aux") for n in sym.list_auxiliary_states())
+        payload = {"%s:%s" % (kind_of[name], name): NDArray(p._file_value())
+                   for name, p in self.collect_params().items()
+                   if name in kind_of}
+        _nd.save("%s-%04d.params" % (path, epoch), payload)
 
     def forward(self, x, *args, **kwargs):
         """Calls ``hybrid_forward(F, x, *args, **params)`` on NDArrays,
@@ -487,6 +754,84 @@ class HybridBlock(Block):
     def hybrid_forward(self, F, x, *args, **kwargs):
         """Override to implement the computation."""
         raise NotImplementedError
+
+
+class SymbolBlock(HybridBlock):
+    """A block that runs a Symbol graph (block.py:555): every graph input
+    that is not one of `inputs` becomes a parameter (aux states with
+    ``grad_req="null"``), waiting for its shape until the first call.
+    It always runs through its CachedOp."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock from files that `export` (or the JAX package's
+        export, or `Module.save_checkpoint`) wrote (block.py:580)."""
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        blk = SymbolBlock(_sym.load(symbol_file),
+                          [_sym.var(n) for n in input_names])
+        if param_file is not None:
+            saved = _load_file(param_file)
+            for name, p in blk.collect_params().items():
+                # prefer the export format's explicit tags over bare names
+                for key in ("arg:" + name, "aux:" + name, name):
+                    if key in saved:
+                        p._load_init(saved[key], ctx)
+                        break
+        return blk
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        self._prefix = ""
+        self._params = ParameterDict("", params)
+        if isinstance(outputs, (list, tuple)):
+            if len(outputs) == 1 and isinstance(outputs[0], list):
+                outputs = outputs[0]
+            outputs = _sym.Group(outputs)
+        if isinstance(inputs, Symbol) and len(inputs.list_outputs()) == 1:
+            inputs = [inputs]
+        in_syms, self._in_format = _tree_flatten(inputs, "input")
+        out_leaves, self._out_format = _tree_flatten(outputs, "output")
+        graph = _sym.Group(out_leaves)
+        feed_names = set()
+        for s_ in in_syms:
+            ent = s_._entries
+            if len(ent) != 1 or not ent[0][0].is_variable:
+                raise MXNetError(
+                    "SymbolBlock inputs must be plain variables; %r is "
+                    "computed by an operator" % str(s_))
+            feed_names.add(s_.name)
+        for name in graph.list_arguments():
+            if name not in feed_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in graph.list_auxiliary_states():
+            if name not in feed_names:
+                self.params.get(name, grad_req="null",
+                                allow_deferred_init=True)
+        self._cached_graph = in_syms, graph
+        strip = len(os.path.commonprefix(list(self._params.keys()))) \
+            if len(self._params) else 0
+        self._attr_params = {k[strip:]: v for k, v in self._params.items()}
+        self._active = True
+
+    def hybridize(self, active=True, **kwargs):
+        """A SymbolBlock is a graph already: it always replays it."""
+        super().hybridize(active, **kwargs)
+        self._active = True
+
+    def _clear_cached_op(self):
+        keep = self._cached_graph     # the graph is this block's definition
+        super()._clear_cached_op()
+        self._cached_graph = keep
+
+    def _sym_forward(self, F, x, *args, **params):
+        _, in_fmt = _tree_flatten([x] + list(args), "input")
+        if in_fmt != self._in_format:
+            raise MXNetError(
+                "SymbolBlock called with input structure %r; built with %r"
+                % (in_fmt, self._in_format))
+        ret = copy.copy(self._cached_graph[1])
+        return _tree_unflatten(list(ret), self._out_format)
 
 
 def collect_params(module):

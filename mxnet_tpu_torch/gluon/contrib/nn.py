@@ -34,6 +34,10 @@ class HybridConcurrent(HybridSequential):
         return torch.cat([child(x) for child in self._modules.values()],
                          dim=self.axis)
 
+    def _sym_forward(self, F, x):
+        outs = [child(x) for child in self._modules.values()]
+        return F.concat(*outs, dim=self.axis)
+
 
 class Identity(HybridBlock):
     """nn.py:43: passes its input through."""

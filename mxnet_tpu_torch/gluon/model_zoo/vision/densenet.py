@@ -33,6 +33,10 @@ class _DenseLayer(HybridBlock):
     def forward(self, x):
         return torch.cat([x, self.body(x)], dim=self._cax)
 
+    def _sym_forward(self, F, x):
+        out = self.body(x)
+        return F.concat(x, out, dim=self._cax)
+
 
 def _make_dense_block(num_layers, bn_size, growth_rate, dropout,
                       stage_index, layout="NCHW"):

@@ -32,6 +32,9 @@ class RELU6(HybridBlock):
     def forward(self, x):
         return torch.clamp(x, 0.0, 6.0)
 
+    def _sym_forward(self, F, x):
+        return F.clip(x, a_min=0.0, a_max=6.0, name="relu6")
+
 
 def _add_conv(out, channels=1, kernel=1, stride=1, pad=0, num_group=1,
               active=True, relu6=False, layout="NCHW"):
@@ -68,6 +71,10 @@ class LinearBottleneck(HybridBlock):
     def forward(self, x):
         out = self.out(x)
         return out + x if self.use_shortcut else out
+
+    def _sym_forward(self, F, x):
+        out = self.out(x)
+        return F.elemwise_add(out, x) if self.use_shortcut else out
 
 
 class MobileNet(HybridBlock):

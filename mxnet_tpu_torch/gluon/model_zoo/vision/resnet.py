@@ -73,6 +73,13 @@ class BasicBlockV1(HybridBlock):
             residual = self.downsample(residual)
         return _ops.activation(residual + x, "relu")
 
+    def _sym_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
 
 class BottleneckV1(HybridBlock):
     """resnet.py:66 (resnet 50/101/152). The body's 1x1 convolutions keep
@@ -112,6 +119,13 @@ class BottleneckV1(HybridBlock):
         if self.downsample is not None:
             residual = self.downsample(residual)
         return _ops.activation(x + residual, "relu")
+
+    def _sym_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample is not None:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
 
 
 class ResNetV1(HybridBlock):
@@ -190,6 +204,16 @@ class BasicBlockV2(HybridBlock):
         x = self.conv2(x)
         return x + residual
 
+    def _sym_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
 
 class BottleneckV2(HybridBlock):
     """resnet.py:191: the pre-activation bottleneck (resnet 50/101/152)."""
@@ -220,6 +244,18 @@ class BottleneckV2(HybridBlock):
         x = _ops.activation(self.bn2(x), "relu")
         x = self.conv2(x)
         x = _ops.activation(self.bn3(x), "relu")
+        x = self.conv3(x)
+        return x + residual
+
+    def _sym_forward(self, F, x):
+        residual = x
+        x = F.Activation(self.bn1(x), act_type="relu")
+        if self.downsample is not None:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = F.Activation(self.bn2(x), act_type="relu")
+        x = self.conv2(x)
+        x = F.Activation(self.bn3(x), act_type="relu")
         x = self.conv3(x)
         return x + residual
 

@@ -41,6 +41,9 @@ class _FireConcat(HybridBlock):
     def forward(self, x):
         return torch.cat([self.p1(x), self.p3(x)], dim=self._axis)
 
+    def _sym_forward(self, F, x):
+        return F.concat(self.p1(x), self.p3(x), dim=self._axis)
+
 
 class SqueezeNet(HybridBlock):
     """squeezenet.py:60."""

@@ -32,6 +32,9 @@ class Activation(HybridBlock):
     def forward(self, x):
         return _ops.activation(x, self._act_type)
 
+    def _sym_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type, name="fwd")
+
 
 class LeakyReLU(HybridBlock):
     """activations.py:59: max(x, alpha * x)."""
@@ -43,6 +46,10 @@ class LeakyReLU(HybridBlock):
 
     def forward(self, x):
         return _leaky(x, "leaky", slope=self._alpha)
+
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha,
+                           name="fwd")
 
 
 class PReLU(HybridBlock):
@@ -61,6 +68,9 @@ class PReLU(HybridBlock):
     def forward(self, x):
         return _leaky(x, "prelu", self.alpha)
 
+    def _sym_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu", name="fwd")
+
 
 class ELU(HybridBlock):
     """activations.py:118: x for x >= 0, alpha * (exp(x) - 1) below."""
@@ -72,12 +82,18 @@ class ELU(HybridBlock):
     def forward(self, x):
         return _leaky(x, "elu", slope=self._alpha)
 
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
 
 class SELU(HybridBlock):
     """activations.py:145: the scaled ELU."""
 
     def forward(self, x):
         return _leaky(x, "selu")
+
+    def _sym_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu", name="fwd")
 
 
 class Swish(HybridBlock):
@@ -90,6 +106,9 @@ class Swish(HybridBlock):
     def forward(self, x):
         return x * torch.sigmoid(x * self._beta)
 
+    def _sym_forward(self, F, x):
+        return x * F.sigmoid(x * self._beta)
+
 
 class GELU(HybridBlock):
     """activations.py: the `gelu` activation (tanh form, as the JAX
@@ -97,3 +116,6 @@ class GELU(HybridBlock):
 
     def forward(self, x):
         return _ops.activation(x, "gelu")
+
+    def _sym_forward(self, F, x):
+        return F.Activation(x, act_type="gelu", name="fwd")

@@ -98,6 +98,11 @@ class HybridSequential(_Stack, HybridBlock):
                 i += 1
         return x
 
+    def _sym_forward(self, F, x):
+        for block in self._modules.values():
+            x = block(x)
+        return x
+
 
 class Dense(HybridBlock):
     """basic_layers.py:115: out = act(x @ weight.T + bias), weight
@@ -130,6 +135,16 @@ class Dense(HybridBlock):
         y = _ops.fully_connected(x, self.weight, self.bias, self._flatten)
         return self.act(y) if self.act is not None else y
 
+    def _sym_forward(self, F, x, weight, bias=None):
+        if bias is None:
+            act = F.FullyConnected(x, weight, no_bias=True,
+                                   num_hidden=self._units,
+                                   flatten=self._flatten, name="fwd")
+        else:
+            act = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten, name="fwd")
+        return self.act(act) if self.act is not None else act
+
 
 class Dropout(HybridBlock):
     """basic_layers.py:163: in training mode, x * mask / (1 - rate) with
@@ -145,6 +160,9 @@ class Dropout(HybridBlock):
         return _registry.get("Dropout").fn(
             _random.generator(x.device), x, p=self._rate, axes=self._axes,
             _mode="train" if autograd.is_training() else "predict")
+
+    def _sym_forward(self, F, x):
+        return F.Dropout(x, p=self._rate, axes=self._axes, name="fwd")
 
 
 class BatchNorm(HybridBlock):
@@ -210,6 +228,10 @@ class BatchNorm(HybridBlock):
                 self.running_var.copy_(new_mv)
         return y
 
+    def _sym_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           name="fwd", axis=self._axis, **self._kwargs)
+
 
 class Embedding(HybridBlock):
     """basic_layers.py:232: rows of weight (input_dim, output_dim) at the
@@ -221,6 +243,8 @@ class Embedding(HybridBlock):
                  prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
+        self._sym_kwargs = {"input_dim": input_dim, "output_dim": output_dim,
+                            "dtype": dtype, "sparse_grad": sparse_grad}
         self._new_param("weight", (input_dim, output_dim), dtype=dtype,
                         init=weight_initializer, device=device)
 
@@ -230,12 +254,18 @@ class Embedding(HybridBlock):
             x, self.weight, input_dim=self._input_dim,
             output_dim=self.weight.shape[1])
 
+    def _sym_forward(self, F, x, weight):
+        return F.Embedding(x, weight, name="fwd", **self._sym_kwargs)
+
 
 class Flatten(HybridBlock):
     """basic_layers.py:255: (N, ...) -> (N, -1)."""
 
     def forward(self, x):
         return x.reshape(x.shape[0], -1)
+
+    def _sym_forward(self, F, x):
+        return F.Flatten(x)
 
 
 class InstanceNorm(HybridBlock):
@@ -267,6 +297,14 @@ class InstanceNorm(HybridBlock):
                eps=self._epsilon)
         return y.transpose(1, self._axis)
 
+    def _sym_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, name="fwd",
+                                  eps=self._epsilon)
+        x = F.swapaxes(x, dim1=1, dim2=self._axis)
+        out = F.InstanceNorm(x, gamma, beta, name="fwd", eps=self._epsilon)
+        return F.swapaxes(out, dim1=1, dim2=self._axis)
+
 
 class LayerNorm(HybridBlock):
     """basic_layers.py:304: normalises over `axis`; the `LayerNorm`
@@ -293,6 +331,10 @@ class LayerNorm(HybridBlock):
         self._ensure_params(x)
         return _registry.get("LayerNorm").fn(
             x, self.gamma, self.beta, axis=self._axis, eps=self._epsilon)
+
+    def _sym_forward(self, F, data, gamma, beta):
+        return F.LayerNorm(data, gamma=gamma, beta=beta, axis=self._axis,
+                           eps=self._epsilon)
 
 
 def _function(function, where):
@@ -330,8 +372,8 @@ class HybridLambda(HybridBlock):
     def __init__(self, function, prefix=None):
         super().__init__(prefix=prefix)
         if isinstance(function, str):
-            fn = _function(function, "symbol/ndarray")
-            self._func = lambda F, *args: fn(*args)
+            _function(function, "symbol/ndarray")
+            self._func = lambda F, *args: getattr(F, function)(*args)
             self._func_name = function
         else:
             fn = _function(function, "symbol/ndarray")

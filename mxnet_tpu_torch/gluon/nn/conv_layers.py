@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ...base import MXNetError
-from ...ops import conv1x1_bn_nhwc
+from ...ops import conv1x1_bn_nhwc, fuses_bn_stats
 from ...ops import nn as _ops
 from ...ops import registry as _registry
 from ..block import HybridBlock
@@ -115,6 +115,14 @@ class _Conv(HybridBlock):
         y = self._conv(x)
         return self.act(y) if self.act is not None else y
 
+    def _sym_forward(self, F, x, weight, bias=None):
+        op = getattr(F, self._op_name)
+        if bias is None:
+            act = op(x, weight, name="fwd", **self._kwargs)
+        else:
+            act = op(x, weight, bias, name="fwd", **self._kwargs)
+        return self.act(act) if self.act is not None else act
+
 
 class Conv1D(_Conv):
     """conv_layers.py:137 (NCW)."""
@@ -158,8 +166,12 @@ class Conv2D(_Conv):
             o, i, kh, kw = p._shape
             p._fan_shape = (o, kh, kw, i)
 
+    def _shapes_known(self):
+        self._set_fans()
+
     def _ensure_params(self, *args):
         if not self._params_ready and self.weight is None:
+            self._attr_params["weight"].var()   # as Block._ensure_params
             self._attr_params["weight"].shape = \
                 self._infer_shapes(*args)["weight"]
             self._set_fans()
@@ -173,17 +185,12 @@ class Conv2D(_Conv):
 
     def fuses_bn_stats(self, bn, x):
         """Whether this convolution and the BatchNorm `bn` after it run as
-        `forward_with_stats` on input `x`: a 1x1 NHWC convolution without
-        padding, dilation, groups or activation, of equal strides,
-        normalised over its channel axis, on float32 or bfloat16 (the
-        kernel's dtypes; others run the two layers apart on every
-        device)."""
+        `forward_with_stats` on input `x`: `ops.fuses_bn_stats`'s rule,
+        for a convolution without activation."""
         kw = self._kwargs
-        return (x.dtype in (torch.float32, torch.bfloat16)
-                and kw["kernel"] == (1, 1) and self._layout == "NHWC"
-                and kw["pad"] == (0, 0) and kw["dilate"] == (1, 1)
-                and self._groups == 1 and kw["stride"][0] == kw["stride"][1]
-                and self.act is None and bn._axis % 4 == 3)
+        return self.act is None and fuses_bn_stats(
+            kw["kernel"], kw["stride"], kw["pad"], kw["dilate"],
+            self._groups, self._layout, bn._axis, x.dtype)
 
     def forward_with_stats(self, x):
         """(y, mean, var): the convolution and its output's batch
@@ -292,6 +299,9 @@ class _Pooling(HybridBlock):
         if self._fast:
             return _ops.pooling(x, **self._kwargs)
         return _registry.get("Pooling").fn(x, **self._kwargs)
+
+    def _sym_forward(self, F, x):
+        return F.Pooling(x, name="fwd", **self._kwargs)
 
 
 class MaxPool1D(_Pooling):
@@ -417,3 +427,6 @@ class ReflectionPad2D(HybridBlock):
     def forward(self, x):
         return _registry.get("Pad").fn(x, mode="reflect",
                                        pad_width=self._padding)
+
+    def _sym_forward(self, F, x):
+        return F.pad(x, mode="reflect", pad_width=self._padding)

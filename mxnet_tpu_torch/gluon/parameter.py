@@ -129,6 +129,7 @@ class Parameter:
         self._initialized = False
         self._deferred_init = None  # (init, device, default_init, value)
         self._grad_req = None
+        self._var = None
         self.grad_req = grad_req
 
     def __repr__(self):
@@ -410,6 +411,34 @@ class Parameter:
         """The value as a file holds it (the JAX package's layout)."""
         t = self.data().detach()
         return t.permute(*self._file_perm) if self._file_perm else t
+
+    def _graph_value(self):
+        """The tensor as a graph takes it (the JAX package's layout, a
+        view): what a CachedOp binds to the parameter's variable."""
+        t = self.data()
+        return t.permute(*self._file_perm) if self._file_perm else t
+
+    def _from_graph_shape(self, shape):
+        """A shape in the graph's layout as the tensor's."""
+        if self._file_perm is None:
+            return tuple(shape)
+        return tuple(shape[self._file_perm.index(i)]
+                     for i in range(len(shape)))
+
+    def var(self):
+        """The Symbol variable of this parameter, made once, with the
+        attributes the JAX package gives it (parameter.py:282): shape
+        (in the file's layout, 0 for unknown dims), dtype, lr_mult,
+        wd_mult and init."""
+        if getattr(self, "_var", None) is None:
+            from .. import symbol
+            shape = self.shape
+            if shape is not None and self._file_perm is not None:
+                shape = tuple(shape[i] for i in self._file_perm)
+            self._var = symbol.var(
+                self.name, shape=shape, dtype=self.dtype,
+                lr_mult=self.lr_mult, wd_mult=self.wd_mult, init=self.init)
+        return self._var
 
     def reset_ctx(self, ctx):
         """Move the parameter to the device `ctx` (a new tensor there)."""

@@ -16,7 +16,7 @@ from . import random_ops  # noqa: F401
 from . import init_ops    # noqa: F401
 from . import extra       # noqa: F401
 from .conv1x1_bn import (Conv1x1BNStats, conv1x1_bn_nhwc, conv1x1_bn_stats,
-                         conv1x1_bn_stats_plain)
+                         conv1x1_bn_stats_plain, fuses_bn_stats)
 from .flash_attention import attention_plain, flash_attention
 from .layer_norm import layer_norm, layer_norm_plain
 from .sgd_momentum import (SGDMomentumPlan, fused_sgd_momentum,
@@ -24,7 +24,8 @@ from .sgd_momentum import (SGDMomentumPlan, fused_sgd_momentum,
 
 __all__ = ["Conv1x1BNStats", "SGDMomentumPlan", "attention_plain",
            "conv1x1_bn_nhwc", "conv1x1_bn_stats", "conv1x1_bn_stats_plain",
-           "flash_attention", "fused_sgd_momentum", "layer_norm",
+           "flash_attention", "fused_sgd_momentum", "fuses_bn_stats",
+           "layer_norm",
            "layer_norm_plain", "launch_counts", "nn", "registry",
            "reset_launch_counts",
            "sgd_momentum_plain", "sgd_mxnet_plain"]

@@ -157,6 +157,26 @@ class Conv1x1BNStats(torch.autograd.Function):
         return g @ w.t(), x.t() @ g
 
 
+#: the dtypes the kernel takes
+STATS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def fuses_bn_stats(kernel, stride, pad, dilate, groups, layout, bn_axis,
+                   dtype=None):
+    """Whether a convolution and the training-mode BatchNorm over its
+    output run as `conv1x1_bn_nhwc`: a 1x1 NHWC convolution without
+    padding, dilation or groups, of equal strides, normalised over its
+    channel axis, on one of `STATS_DTYPES` (others run the two layers
+    apart on every device). The one rule of `Conv2D.fuses_bn_stats` and
+    of the graph's rewrite, which passes no `dtype` when it plans and
+    tests it against `STATS_DTYPES` when it runs."""
+    return ((dtype is None or dtype in STATS_DTYPES)
+            and tuple(kernel) == (1, 1) and layout == "NHWC"
+            and tuple(pad) == (0, 0) and tuple(dilate) == (1, 1)
+            and groups == 1 and stride[0] == stride[1]
+            and bn_axis % 4 == 3)
+
+
 def conv1x1_bn_nhwc(x, weight, bias=None, stride=1):
     """A 1x1 convolution of NHWC x with weight (Cout, Cin, 1, 1) (and
     bias), and the batch statistics of its output, through

@@ -70,8 +70,6 @@ class Optimizer:
                  clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
                  sym=None, begin_num_update=0, multi_precision=False,
                  param_dict=None):
-        if sym is not None:
-            raise MXNetError("the port has no Symbol: sym must be None")
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.lr_scheduler = lr_scheduler
@@ -86,6 +84,9 @@ class Optimizer:
         self.clip_gradient = clip_gradient
         self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
+        # a Symbol's __lr_mult__/__wd_mult__ attributes (optimizer.py:96)
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ()
         self.param_dict = param_dict if param_dict else {}
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -146,7 +147,13 @@ class Optimizer:
         self.lr = lr
 
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = dict(args_lr_mult)
+        self.lr_mult = {}
+        if self.sym_info:
+            attr, arg_names = self.sym_info
+            for name in arg_names:
+                if name in attr and "__lr_mult__" in attr[name]:
+                    self.lr_mult[name] = float(attr[name]["__lr_mult__"])
+        self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
         """Module's rule (optimizer.py:173): names that end in neither
@@ -156,6 +163,11 @@ class Optimizer:
         for n in self.idx2name.values():
             if not (n.endswith("_weight") or n.endswith("_gamma")):
                 self.wd_mult[n] = 0.0
+        if self.sym_info:
+            attr, arg_names = self.sym_info
+            for name in arg_names:
+                if name in attr and "__wd_mult__" in attr[name]:
+                    self.wd_mult[name] = float(attr[name]["__wd_mult__"])
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):

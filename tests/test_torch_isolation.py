@@ -173,3 +173,65 @@ def test_nd_default_context_is_the_card_and_raises_without_one(monkeypatch):
         b = mx.nd.ones((2,)) + a
         assert b.context == mx.cpu() and b.asnumpy().tolist() == [2.0, 3.0]
     assert mx.current_context() == mx.gpu(0)
+
+
+def test_symbolic_layer_runs_with_jax_blocked():
+    """mx.sym, mx.mod and mx.io in a fresh interpreter with imports of JAX
+    and of mxnet_tpu blocked: a symbol built, a Module bound and trained a
+    step on the CPU from an NDArrayIter, a hybridized block exported and
+    imported back."""
+    code = r"""
+import os, sys, tempfile
+BLOCK = ("jax", "jaxlib", "mxnet_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import of " + name)
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
+    del sys.modules[m]
+sys.meta_path.insert(0, Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+with mx.cpu():
+    data = mx.sym.var("data")
+    net = mx.sym.SoftmaxOutput(mx.sym.FullyConnected(data, num_hidden=3,
+                                                     name="fc"),
+                               name="softmax")
+    it = mx.io.NDArrayIter(np.ones((4, 5), np.float32),
+                           np.zeros(4, np.float32), batch_size=2)
+    mod = mx.mod.Module(net, context=mx.cpu())
+    mod.fit(it, num_epoch=1, optimizer_params={"learning_rate": 0.1})
+    assert np.isfinite(mod.predict(it).asnumpy()).all()
+    blk = mx.gluon.nn.Dense(2, in_units=5)
+    blk.initialize(ctx=mx.cpu())
+    blk.hybridize()
+    y = blk(mx.nd.ones((1, 5)))
+    tmp = tempfile.mkdtemp()
+    blk.export(os.path.join(tmp, "d"))
+    back = mx.gluon.SymbolBlock.imports(os.path.join(tmp, "d-symbol.json"),
+                                        "data", os.path.join(tmp,
+                                                             "d-0000.params"),
+                                        ctx=mx.cpu())
+    assert np.array_equal(back(mx.nd.ones((1, 5))).asnumpy(), y.asnumpy())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_module_binds_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """Module's default context is the card: without one, bind raises
+    DeviceUnreachable; context=mx.cpu() binds on the CPU."""
+    import mxnet_tpu_torch as mx
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = mx.sym.var("data")
+    net = mx.sym.FullyConnected(data, num_hidden=3, name="fc")
+    mod = mx.mod.Module(net, label_names=None)
+    with pytest.raises(DeviceUnreachable):
+        mod.bind([("data", (2, 4))])
+    mod = mx.mod.Module(net, label_names=None, context=mx.cpu())
+    mod.bind([("data", (2, 4))])
+    assert mod._exec_group.exec_.arg_dict["data"].context == mx.cpu()

@@ -160,6 +160,30 @@ Phases; any failure exits non-zero before the final line:
              HybridBlock calling F.contrib.flash_attention: LayerNorm and
              flash attention launch their kernels inside the graphs.
 
+23. dist_small — tools/launch.py -n 2 starts tests/torch_dist_worker.py
+             --device cuda on the one card, over gloo (MXTPU_DIST_BACKEND,
+             CUDA tensors staged through the host; NCCL refuses two ranks
+             on one device): each rank checks the distributed store's
+             exact sums, then trains a narrow NHWC ResNet V1 (b8 at 32 px,
+             fp32, 3 fused then 3 staged steps), an MLP (also 2-bit
+             compressed) and Module.fit(kvstore="dist_sync"). Gates: the
+             ranks' weights bit-identical, fused equal to staged, the
+             ResNet within 1e-5 of a one-process card oracle that sums the
+             ranks' gradients in rank order, the compressed MLP equal to
+             its exact oracle, 6 conv1x1_bn_stats launches a forward and
+             one fused_sgd_momentum launch a step.
+24. dist_train — gluon_train's net and recipe through
+             gluon.Trainer(kvstore="dist_device_sync") after
+             init_distributed() at world size 1 over NCCL (no collective
+             runs at one process): from one saved state 10 fused steps,
+             then 10 staged (MXTPU_FUSED_STEP=0), with cuDNN's
+             deterministic algorithms; their weights and optimizer states
+             must be bit-identical. For each: img/s, step ms, a profiled
+             step (host against device ms, busy share, device ms by kind),
+             the host's ms to enqueue trainer.step, peak memory, and
+             conv1x1_bn_stats, fused_sgd_momentum and
+             train.step.dispatches a step; beside gluon_train's img/s.
+
 The kernel phase also times conv1x1_bn_stats in fp32 at ResNet-50's 15
 shapes as module_train calls it (the CUDA-core kernel), beside its bound
 and matmul + var_mean.
@@ -1226,7 +1250,7 @@ def gluon_small(dev):
 def gluon_train(dev, card):
     """ResNet-50 v1 trained through the Gluon loop with MXNet's
     mixed-precision recipe. Returns the launch counts of the timed
-    window."""
+    window and its img/s."""
     import gc
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import ops
@@ -1336,7 +1360,7 @@ def gluon_train(dev, card):
          sgd_groups=sgd_groups, numerics=guard,
          running_stats_bit_identical_after_predict=same,
          profile_one_step=step_profile)
-    return launches
+    return launches, img_s
 
 
 # ---------------------------------------------------------------------------
@@ -3007,6 +3031,290 @@ def gluon_layers_hybridized(ops, dev, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 23-24: the distributed KVStore and the fused exchange + update step
+# ---------------------------------------------------------------------------
+DIST_SMALL = dict(ranks=2, batch=8, timeout_s=600, tol=1e-5)
+
+
+def _dist_worker():
+    """tests/torch_dist_worker.py as a module: its data and oracles."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_dist_worker
+    return torch_dist_worker
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def dist_small(dev, card):
+    """2 ranks on the one card over gloo with CUDA tensors, started by
+    tools/launch.py -n 2 as a user starts a gang: each rank checks the
+    store's exact sums and trains tests/torch_dist_worker.py's nets (a
+    narrow NHWC ResNet V1 at b8 and 32 px, fp32, 3 fused then 3 staged
+    steps from the same start; an MLP, also 2-bit compressed). Gates: the
+    ranks' weights bit-identical, fused equal to staged, the ResNet within
+    tol of a one-process card oracle that sums the ranks' gradients in
+    rank order, the compressed MLP equal to its exact oracle. Returns the
+    ranks' launches."""
+    import shutil
+    import signal
+    import tempfile
+    import mxnet_tpu_torch as mx
+    w = _dist_worker()
+    n, batch = DIST_SMALL["ranks"], DIST_SMALL["batch"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = tempfile.mkdtemp(prefix="dist_small")
+    cmd = [sys.executable, os.path.join(here, "tools", "launch.py"), "-n",
+           str(n), sys.executable, os.path.join(here, "tests",
+                                                "torch_dist_worker.py"),
+           "--device", "cuda", "--resnet-batch", str(batch), "--out", out]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True,
+                            env=dict(os.environ, MXTPU_DIST_BACKEND="gloo"))
+    try:
+        log, _ = proc.communicate(timeout=DIST_SMALL["timeout_s"])
+    except subprocess.TimeoutExpired:
+        log = b"timed out after %d s" % DIST_SMALL["timeout_s"]
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    gang_s = time.perf_counter() - t0
+    log = log.decode(errors="replace")
+    if proc.returncode or any("WORKER_%d_OK" % r not in log
+                              for r in range(n)):
+        fail("dist_small: the gang failed (rc %s):\n%s"
+             % (proc.returncode, log[-4000:]))
+    ranks = [dict(np.load(os.path.join(out, "rank%d.npz" % r)))
+             for r in range(n)]
+    shutil.rmtree(out, ignore_errors=True)
+
+    def keys(arrays, tag):
+        return sorted((k for k in arrays if k.startswith(tag + "_")),
+                      key=lambda k: (len(k), k))
+
+    names = list(w.build_resnet(torch.device("cpu")).collect_params())
+    running = {i for i, name in enumerate(names) if "_running_" in name}
+    differ = [(tag, k) for tag in ("mlp_fused", "mlp_staged", "mlp_comp",
+                                   "resnet_fused", "resnet_staged",
+                                   "module")
+              for k in keys(ranks[0], tag)
+              if not (tag.startswith("resnet")
+                      and int(k.rsplit("_", 1)[1]) in running)
+              and any(r[k].tobytes() != ranks[0][k].tobytes()
+                      for r in ranks[1:])]
+    staged_differ = [(i, k) for i, r in enumerate(ranks)
+                     for kind in ("mlp", "resnet")
+                     for k in keys(r, kind + "_fused")
+                     if r[k].tobytes() !=
+                     r[k.replace("_fused_", "_staged_")].tobytes()]
+    oracle = w.resnet_oracle(mx, dev, n, batch)
+    oracle_err = max(
+        float(np.abs(ranks[r][k] - oracle[r][ok]).max() /
+              max(1.0, np.abs(oracle[r][ok]).max()))
+        for r in range(n) for k, ok in zip(keys(ranks[r], "resnet_fused"),
+                                           keys(oracle[r], "resnet")))
+    comp = w.compressed_mlp_oracle(mx, dev, n)
+    comp_differ = [k for k in keys(ranks[0], "mlp_comp")
+                   if ranks[0][k].tobytes() != comp[k].tobytes()]
+    launches = {tag: ranks[0]["launches_" + tag].tolist()
+                for tag in ("resnet_fused", "resnet_staged")}
+    if differ or staged_differ or not oracle_err <= DIST_SMALL["tol"] or \
+            comp_differ:
+        fail("dist_small: ranks differ in %s; fused and staged differ in "
+             "%s; ResNet against the card oracle %g (tol %g); compressed "
+             "MLP against its exact oracle differs in %s"
+             % (differ[:4], staged_differ[:4], oracle_err,
+                DIST_SMALL["tol"], comp_differ))
+    # 6 conv1x1+BN pairs a forward, 3 steps; one SGD group a step
+    if any(v != [6 * w.STEPS, w.STEPS] for v in launches.values()):
+        fail("dist_small: rank 0's launches (conv1x1_bn_stats, "
+             "fused_sgd_momentum) %s, want [%d, %d] a run"
+             % (launches, 6 * w.STEPS, w.STEPS))
+    dispatches, flats, groups, steps = ranks[0]["counts"].tolist()
+    emit(phase="dist_small", card=card, ranks=n, backend="gloo, CUDA "
+         "tensors (host-staged)", launcher="tools/launch.py -n %d" % n,
+         resnet_batch_per_rank=batch, image=w.RESNET["img"], steps=steps,
+         gang_s=gang_s, store_exact_sums=True, ranks_bit_identical=True,
+         fused_equals_staged=True, resnet_oracle_rel_err=oracle_err,
+         tol=DIST_SMALL["tol"], compressed_equals_exact_oracle=True,
+         mlp_fused_dispatches_a_step=dispatches / steps,
+         mlp_flats=flats, mlp_groups_a_step=groups / steps,
+         launches_rank0=launches)
+    total = [sum(r["launches_" + tag][i] for r in ranks
+                 for tag in ("resnet_fused", "resnet_staged"))
+             for i in range(2)]
+    return {"conv1x1_bn_stats": int(total[0]),
+            "fused_sgd_momentum": int(total[1])}
+
+
+def _train_state(net, trainer):
+    """Copies of the parameters (running statistics too) and of every
+    optimizer state tensor."""
+    out = [p.data().detach().clone() for p in net.collect_params().values()]
+    stack = list(trainer._updaters[0].states.values())
+    while stack:
+        st = stack.pop()
+        if isinstance(st, (list, tuple)):
+            stack.extend(st)
+        elif isinstance(st, torch.Tensor):
+            out.append(st.detach().clone())
+    return out
+
+
+def dist_train(dev, card, gluon_img_s):
+    """ResNet-50 v1 with gluon_train's recipe through
+    gluon.Trainer(kvstore="dist_device_sync") after init_distributed() at
+    world size 1 over NCCL: from one saved state, 10 fused steps, then 10
+    staged steps (MXTPU_FUSED_STEP=0); their weights and optimizer states
+    must be bit-identical (cuDNN's deterministic algorithms, so that two
+    runs of a step are). Returns the launches of both runs."""
+    import gc
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.observability import registry
+    from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+    from mxnet_tpu_torch.resilience import numerics
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_distributed("127.0.0.1:%d" % _free_port(), 1, 0)
+    tmp = tempfile.mkdtemp(prefix="dist_train")
+    torch.backends.cudnn.deterministic = True
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail("dist_train: process group %s of %d, want nccl of 1"
+                 % (dist.get_backend(), dist.get_world_size()))
+        mx.random.seed(0)
+        net = resnet50_v1(layout="NHWC", device=dev)
+        net.initialize()
+        net.cast("bfloat16")
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "multi_precision": True,
+            "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=5,
+                                                            factor=0.5)},
+            kvstore="dist_device_sync")
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3)
+                             .astype("float32")).to(dev).to(torch.bfloat16)
+        y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")) \
+            .to(dev)
+        os.environ["MXTPU_FUSED_STEP"] = "1"
+        warm = torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                            for _ in range(GLUON_WARM)]).cpu().numpy()
+        kv_type = trainer._kvstore.type
+        params, states = (os.path.join(tmp, "net.params"),
+                          os.path.join(tmp, "trainer.states"))
+        net.save_parameters(params)
+        trainer.save_states(states)
+        disp = registry.counter("train.step.dispatches")
+        groups = registry.counter("optimizer.fused.groups")
+        runs, finals = {}, {}
+        for mode in ("fused", "staged"):
+            os.environ["MXTPU_FUSED_STEP"] = "1" if mode == "fused" else "0"
+            net.load_parameters(params)
+            trainer.load_states(states)
+            numerics.drain_flags()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            d0, g0 = disp.get(), groups.get()
+            # the main path, with every launch counter at 0 just before it
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                                  for _ in range(TRAIN_STEPS)]).cpu().numpy()
+            wall = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            dispatches, n_groups = disp.get() - d0, groups.get() - g0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            guard = numerics.drain_flags()
+            finals[mode] = _train_state(net, trainer)
+            ran_fused = trainer._updaters[0]._fused_step_owner is not None \
+                and mode == "fused"
+            if not np.isfinite(losses).all() or guard["skipped_steps"] or \
+                    guard["anomalies"]:
+                fail("dist_train %s: losses %s, numerics guard %s"
+                     % (mode, losses, guard))
+            if launches["conv1x1_bn_stats"] != 36 * TRAIN_STEPS or \
+                    launches["fused_sgd_momentum"] != n_groups or \
+                    n_groups < TRAIN_STEPS or dispatches != n_groups or \
+                    (mode == "fused" and not ran_fused):
+                fail("dist_train %s: launches %s, %d SGD groups, %d "
+                     "dispatches over %d steps, fused step ran: %s; want 36 "
+                     "conv1x1_bn_stats a step, one fused_sgd_momentum "
+                     "launch and one dispatch per SGD group"
+                     % (mode, launches, n_groups, dispatches, TRAIN_STEPS,
+                        ran_fused))
+            # where one step's time goes (after the state was taken): the
+            # whole step, and the host's enqueue of trainer.step alone
+            t = time.perf_counter()
+            gluon_loop(net, trainer, loss_fn, x, y).cpu()
+            one_step_ms = (time.perf_counter() - t) * 1e3
+            step_host = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                trainer.step(BATCH)
+                step_host.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            events = device_events(
+                lambda: gluon_loop(net, trainer, loss_fn, x, y).cpu(), 1)
+            dev_us = {k: us for k, (us, _) in events.items()}
+            profile = breakdown(dev_us, 1, one_step_ms, top_n=8)
+            profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+            runs[mode] = dict(
+                img_s=BATCH * TRAIN_STEPS / wall,
+                step_ms=wall / TRAIN_STEPS * 1e3, peak_mem_gb=peak_gb,
+                losses=losses.tolist(),
+                conv1x1_bn_stats_a_step=launches["conv1x1_bn_stats"] /
+                TRAIN_STEPS,
+                fused_sgd_momentum_a_step=launches["fused_sgd_momentum"] /
+                TRAIN_STEPS,
+                train_step_dispatches_a_step=dispatches / TRAIN_STEPS,
+                trainer_step_host_ms_median=float(np.median(step_host)),
+                launches=launches, profile_one_step=profile)
+        same = len(finals["fused"]) == len(finals["staged"]) and all(
+            a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(finals["fused"], finals["staged"]))
+        if not same:
+            fail("dist_train: 10 fused and 10 staged steps from one state "
+                 "left different weights or optimizer states")
+    finally:
+        os.environ.pop("MXTPU_FUSED_STEP", None)
+        torch.backends.cudnn.deterministic = False
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(phase="dist_train", card=card, model="ResNet-50 v1, NHWC, seeded "
+         "random weights", batch=BATCH, image=IMG,
+         dtype="net.cast(bfloat16), multi_precision (fp32 masters)",
+         kvstore=kv_type, backend="nccl", world_size=1,
+         collectives_a_step=0, steps=TRAIN_STEPS, warm_steps=GLUON_WARM,
+         losses_warm=warm.tolist(), cudnn_deterministic=True,
+         fused_equals_staged_bit_for_bit=same,
+         state_tensors_compared=len(finals["fused"]),
+         fused=runs["fused"], staged=runs["staged"],
+         gluon_train_img_s=gluon_img_s)
+    return {k: runs["fused"]["launches"][k] + runs["staged"]["launches"][k]
+            for k in ("conv1x1_bn_stats", "fused_sgd_momentum")}
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -3100,7 +3408,7 @@ def main():
     train_launches = train(dev, card)
     # phases 8, 9: the Gluon loop
     gluon_small(dev)
-    gluon_launches = gluon_train(dev, card)
+    gluon_launches, gluon_img_s = gluon_train(dev, card)
     # phases 10-13: the eager array layer (mx.nd)
     nd_sweep(dev)
     flash_nd = nd_flash(ops, dev, card, gen)
@@ -3117,6 +3425,9 @@ def main():
     sym_score(dev, card)
     mnist_launches = mnist(ops, dev, card)
     hyb_layers = gluon_layers_hybridized(ops, dev, card)
+    # phases 23-24: the distributed KVStore and the fused step
+    small_dist_launches = dist_small(dev, card)
+    dist_launches = dist_train(dev, card, gluon_img_s)
     by_path = {name: {"train": train_launches[name],
                       "gluon_train": gluon_launches[name],
                       "nd_gpt": gpt_nd["launches"][name],
@@ -3124,7 +3435,9 @@ def main():
                       "zoo_train": zoo_launches[name],
                       "module_train": module_launches[name],
                       "hybrid_train": hybrid_launches[name],
-                      "mnist": mnist_launches[name]}
+                      "mnist": mnist_launches[name],
+                      "dist_small": small_dist_launches[name],
+                      "dist_train": dist_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
                              "nd_gpt": gpt_nd["launches"]["layer_norm"],

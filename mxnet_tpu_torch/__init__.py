@@ -24,7 +24,11 @@ model zoo); and the symbolic layer: `sym` (Symbol, `graph`), the
 `executor`, `cached_op` (a real `hybridize`, `export`, `SymbolBlock`)
 and the Module API (`mod`, `io.NDArrayIter`, `metric`, `callback`,
 `model`), whose SGD update is `fused_sgd_momentum` and whose 1x1
-NHWC convolutions before a training BatchNorm run `conv1x1_bn_stats`.
+NHWC convolutions before a training BatchNorm run `conv1x1_bn_stats`;
+and distributed training over torch.distributed: the 'dist_*' kvstore
+types (`parallel.kvstore_dist`), fusion buckets (`parallel.bucketing`),
+2-bit compression (`gradient_compression`) and the fused exchange +
+update step behind `gluon.Trainer` and `Module` (`parallel.fused_step`).
 """
 from .base import MXNetError, __version__, getenv
 from .context import (Context, DeviceUnreachable, cpu, current_context,

@@ -4,13 +4,16 @@
 `_update_params` :80, `save_checkpoint` :139, `load_checkpoint` :150;
 reference: python/mxnet/model.py).
 
-`_update_params` is the JAX package's staged path: the kvstore reduce
-(`push_all`/`pull_all`) when there is a store, then one `update_all` of
-the whole set, which the `FusedUpdater` runs as one launch of the
-`fused_sgd_momentum` kernel per SGD group on the card. The JAX package's
-default there is its one-program step (`parallel/fused_step.py`), which
-its record states is bit-identical to this staged path; the port's
-one-program step waits for ROADMAP A6.
+`_update_params` first tries the fused exchange + update step
+(`parallel.fused_step`, ``MXTPU_FUSED_STEP``, default on) over the one
+device's set, as `Module.fit`'s update; otherwise it takes the staged
+path, the bit-parity oracle: the kvstore reduce (`push_all`/`pull_all`)
+when there is a store, then one `update_all` of the whole set, which the
+`FusedUpdater` runs as one launch of the `fused_sgd_momentum` kernel per
+SGD group on the card. A store that runs the updater
+(``update_on_kvstore``, the default of a distributed type) takes
+`_update_params_on_kvstore`: one push, the store's batched update, one
+pull.
 
 Checkpoints are ``prefix-symbol.json`` and ``prefix-%04d.params`` with
 ``arg:``/``aux:`` entries, the files the JAX package reads and writes.
@@ -63,7 +66,10 @@ def _initialize_kvstore(kvstore, param_arrays, arg_params, param_names,
     """One key per parameter, from `arg_params` (reference: model.py:105)."""
     for idx, param_on_devs in enumerate(param_arrays):
         name = param_names[idx]
-        kvstore.init(name, arg_params[name]._data)
+        # the store's copy lives where the parameters do (arg_params are
+        # host arrays): the updater then runs on the card
+        kvstore.init(name, arg_params[name]._data.to(
+            _tensors(param_on_devs)[0].device))
         if update_on_kvstore:
             kvstore.pull(name, _tensors(param_on_devs), priority=-idx)
 
@@ -107,6 +113,14 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
         for k, (w, g) in enumerate(zip(_tensors(arg_list),
                                        _tensors(grad_list))):
             updates[k].append((i * num_device + k, g, w))
+    if num_device == 1 and updates[0]:
+        from .parallel import fused_step as _fstep
+        idxs = [u[0] for u in updates[0]]
+        if _fstep.eligible(updater, idxs, kvstore=kvstore or None) and \
+                _fstep.try_step(updater, idxs, [u[1] for u in updates[0]],
+                                [u[2] for u in updates[0]],
+                                kvstore=kvstore or None):
+            return
     if kvstore and names:
         kvstore.push_all(names, kv_grads, priorities=prios)
         kvstore.pull_all(names, kv_grads, priorities=prios)

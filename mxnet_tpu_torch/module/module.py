@@ -372,8 +372,9 @@ class Module(BaseModule):
         if self._params_dirty:
             self._sync_params_from_devices()
 
-        kvstore, update_on_kvstore = _create_kvstore(
-            kvstore, len(self._context), self._arg_params)
+        with self._context[0]:    # a distributed store's rank device
+            kvstore, update_on_kvstore = _create_kvstore(
+                kvstore, len(self._context), self._arg_params)
         self._optimizer = self._materialize_optimizer(
             optimizer, optimizer_params, kvstore, update_on_kvstore)
         self._kvstore = kvstore

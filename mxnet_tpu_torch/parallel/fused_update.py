@@ -26,10 +26,17 @@ equal (update count, lr, wd). Then:
 
 The numerics guard (``MXTPU_NUMERICS``, default on): a group whose
 gradients are not all finite keeps its weights and states bit-identical.
-For an SGD group the verdict is a device flag the kernel reads (no host
-read); a `_foreach` group reads it on the host. One verdict per
-`update_all` goes to `resilience.numerics.record_flag` (where="update").
-Counter: ``optimizer.fused.groups``.
+The verdict is a device flag and the host never reads it here: the SGD
+kernel reads it, and a `_foreach` group's writes go through
+``torch.where`` on it. One verdict per `update_all` goes to
+`resilience.numerics.record_flag` (where="update"), to be read when the
+guard drains its verdicts.
+
+A `parallel.fused_step.FusedTrainStep` attached to the updater
+(`_fused_step_owner`) shares its groups, its plans and its states: its
+state flats hold the per-key states as views, and `get_states` flushes
+them into compact tensors first, so the pickle holds each key's own
+elements. Counter: ``optimizer.fused.groups``.
 """
 from __future__ import annotations
 
@@ -41,12 +48,16 @@ from ..observability import registry as _obs
 from ..ops.sgd_momentum import cached_mxnet_plan
 from ..resilience import numerics as _num
 
-__all__ = ["FusedUpdater", "fused_enabled"]
+__all__ = ["FusedUpdater", "STEP_DISPATCHES", "all_finite", "fused_enabled"]
 
 FUSED_GROUPS = _obs.counter(
     "optimizer.fused.groups",
     "Fused optimizer groups dispatched (one kernel launch or one _foreach "
     "pass each)")
+STEP_DISPATCHES = _obs.counter(
+    "train.step.dispatches",
+    "Launches for a training step's gradient exchange and update: one per "
+    "collective, one per update group (a kernel launch or a _foreach pass)")
 
 # class -> (number of state tensors, the list function; None: the kernel)
 _SUPPORTED = {
@@ -95,11 +106,25 @@ class FusedUpdater(opt.Updater):
         # group identity -> (pointers the plan was built on, plan), of the
         # last update_all
         self._plans = {}
+        # the FusedTrainStep that carries this updater's states in flats
+        self._fused_step_owner = None
 
-    def _collect(self, n_states, indices, grads, weights):
+    def get_states(self, dump_optimizer=False):
+        if self._fused_step_owner is not None:
+            self._fused_step_owner.flush_state()
+        return super().get_states(dump_optimizer=dump_optimizer)
+
+    def set_states(self, states):
+        if self._fused_step_owner is not None:
+            self._fused_step_owner.drop_state()
+        super().set_states(states)
+
+    def _collect(self, n_states, indices, grads, weights, require_all=False):
         """(fused entries, per-key leftovers) in caller order. Update
         counts, lr and wd resolve after the whole set is sorted, in
-        caller order, as the per-key path would resolve them."""
+        caller order, as the per-key path would resolve them; with
+        `require_all`, a set with leftovers gives (None, leftovers) and
+        no count moves."""
         o = self.optimizer
         entries, leftovers = [], []
         for i, g, w in zip(indices, grads, weights):
@@ -131,6 +156,8 @@ class FusedUpdater(opt.Updater):
                     o._resolved_mult(i, "wd_mult"))
             entries.append(_Entry(i, w, pack_w, g.contiguous(), leaves,
                                   master, lane))
+        if require_all and leftovers:
+            return None, leftovers
         for e in entries:
             o._update_count(e.index)
             e.lr = o._get_lr(e.index)
@@ -173,6 +200,7 @@ class FusedUpdater(opt.Updater):
                     self._run_foreach(math, group, lr, wd, t, ok)
                 FUSED_GROUPS.inc()
                 opt._UPDATE_DISPATCHES.inc()
+                STEP_DISPATCHES.inc()
                 oks.append(ok)
         if guard and oks:
             _num.record_flag(oks[0] if len(oks) == 1
@@ -196,18 +224,24 @@ class FusedUpdater(opt.Updater):
              o.clip_gradient, ok)
 
     def _run_foreach(self, math, group, lr, wd, t, ok):
-        if ok is not None and not bool(ok):
-            return
+        """The optimizer's list function over the group. Under a verdict
+        `ok`, what it writes is kept only where `ok` holds (a device
+        select, bit for bit): no host read."""
         mp = group[0].master is not None
         gs = [e.grad.float() if mp else e.grad for e in group]
         ws = [e.pack_w for e in group]
         states = [[e.leaves[s] for e in group]
                   for s in range(len(group[0].leaves))]
+        written = ws + [x for st in states for x in st]
+        old = [x.clone() for x in written] if ok is not None else None
         if math is opt._adam_math:
             math(ws, gs, states[0], states[1], lr, t, wd,
                  self.optimizer.hyper())
         else:
             math(ws, gs, states, lr, t, wd, self.optimizer.hyper())
+        if old is not None:
+            for x, was in zip(written, old):
+                x.copy_(torch.where(ok, x, was))
         if mp:
             for e in group:
                 e.weight.copy_(e.master)

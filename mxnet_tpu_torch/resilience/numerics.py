@@ -4,13 +4,17 @@ SDC replay are not ported yet).
 
 `ShardedTrainer.step` skips an update whose gradients are not all finite,
 leaving parameters, momentum and BatchNorm statistics as they were, and
-records its verdict here as where="step"; `parallel.FusedUpdater` (under
-`gluon.Trainer`) skips each such group of its update the same way and
-records one verdict per update as where="update". `step_many` runs its
-steps unguarded and records one verdict for the window (where="window"):
-detection only, since a bad window's weights were written. A verdict is a
-bool or a 0-d device tensor, appended without a host read;
-`drain_flags` resolves them all at once.
+records its verdict here as where="step", as does the fused exchange +
+update step (`parallel.fused_step`, under `gluon.Trainer` and `Module`);
+`parallel.FusedUpdater` (the staged path) skips each such group of its
+update the same way and records one verdict per update as
+where="update". The distributed store's bucketed exchange records one
+verdict per bucket as where="exchange" (an anomaly, not a skip).
+`step_many` runs its steps unguarded and records one verdict for the
+window (where="window"): detection only, since a bad window's weights
+were written. A verdict is a bool or a 0-d device tensor, appended
+without a host read; the host reads each once, when `drain_flags`
+resolves them all.
 
 ``MXTPU_NUMERICS=0`` turns the guard off (re-read per call).
 """

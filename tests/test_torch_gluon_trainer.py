@@ -704,13 +704,25 @@ def test_initialize_follows_each_parameters_own_initializer(setup):
     assert not torch.equal(net.output.weight, before)
 
 
-def test_trainer_refuses_what_the_port_does_not_have(setup):
+def test_trainer_refuses_what_the_port_does_not_have(setup, monkeypatch):
+    """What the port refuses: 'dist_async' (no asynchronous updates),
+    ZeRO-1 (not ported) and the JAX package's own refusals. A
+    distributed store runs where the parameters are: with no card, on
+    the CPU the caller put them on, at one process."""
+    _, _, x, y = setup
     net = _port_net(setup)
     params = net.collect_params()
-    with pytest.raises(MXNetError, match="not ported"):
-        gluon.Trainer(params, "sgd", dict(OPT), kvstore="dist_sync").step(1)
-    with pytest.raises(MXNetError, match="compression"):
-        gluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
+    with pytest.raises(MXNetError, match="dist_async"):
+        gluon.Trainer(params, "sgd", dict(OPT), kvstore="dist_async").step(1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = gluon.Trainer(params, "sgd", dict(OPT), kvstore="dist_sync")
+    _port_step(net, tr, x, y)
+    assert tr._kvstore.device == torch.device("cpu")
+    assert tr._kvstore.num_workers == 1
+    monkeypatch.setenv("MXTPU_ZERO1", "1")
+    with pytest.raises(MXNetError, match="A6b"):
+        _port_step(net, gluon.Trainer(params, "sgd", dict(OPT)), x, y)
+    monkeypatch.delenv("MXTPU_ZERO1")
     with pytest.raises(ValueError, match="Parameters"):
         gluon.Trainer([net.output.weight], "sgd")
     with pytest.raises(MXNetError, match="optimizer_params"):

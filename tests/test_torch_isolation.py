@@ -62,6 +62,68 @@ sys.exit(1 if bad else 0)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_distributed_training_imports_no_jax(tmp_path):
+    """With JAX and the JAX package blocked, a one-process gloo group on
+    the CPU: `mx.kv.create("dist_sync")` joins it through the launcher's
+    environment, pushes and pulls, and a Trainer over it takes the fused
+    step; the bucketing and compression modules run too."""
+    code = r"""
+import socket, sys
+BLOCK = ("jax", "jaxlib", "mxnet_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import of " + name)
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
+    del sys.modules[m]
+sys.meta_path.insert(0, Block())
+import os
+s = socket.socket(); s.bind(("127.0.0.1", 0))
+os.environ.update(JAX_COORDINATOR_ADDRESS="127.0.0.1:%d"
+                  % s.getsockname()[1], JAX_NUM_PROCESSES="1",
+                  JAX_PROCESS_ID="0")
+s.close()
+import torch
+import torch.distributed as dist
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import autograd, gluon
+from mxnet_tpu_torch.gradient_compression import GradientCompression
+from mxnet_tpu_torch.parallel import bucketing, fused_step
+try:
+    with mx.cpu():
+        kv = mx.kv.create("dist_sync")
+        assert dist.get_backend() == "gloo" and kv.num_workers == 1
+        kv.init("w", torch.zeros(3))
+        kv.push("w", [torch.ones(3), torch.ones(3)])
+        out = torch.zeros(3)
+        kv.pull("w", out=out)
+        assert out.tolist() == [2.0, 2.0, 2.0]
+        net = gluon.nn.Dense(2, in_units=3)
+        net.initialize()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1}, kvstore=kv)
+        with autograd.record():
+            loss = net(torch.ones(4, 3)).sum()
+        loss.backward()
+        tr.step(4)
+        assert tr._updaters[0]._fused_step_owner is not None
+    b = bucketing.GradBucketer(64).plan([(0, (3,), "float32", 0, False)])
+    assert len(b) == 1
+    gc = GradientCompression(threshold=0.5)
+    assert gc.roundtrip(0, torch.tensor([0.7, -0.9, 0.1])).tolist() == \
+        [0.5, -0.5, 0.0]
+finally:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def _python_files():
     for dirpath, _, files in os.walk(PKG):
         for f in files:
@@ -127,7 +189,8 @@ def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
     """The Gluon loop's entry points: a layer or net made, or a parameter
     moved, without device="cpu" raises when there is no card; asked for
     the CPU, record -> backward -> Trainer.step runs there. The
-    distributed kvstore is not ported and says so."""
+    distributed kvstore is the same: on the card, or on the CPU when
+    asked; 'dist_async' is refused."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import MXNetError, autograd, gluon
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -147,8 +210,13 @@ def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
     loss.backward()
     trainer.step(2)
     assert loss.context == mx.cpu() and np.isfinite(loss.asnumpy()).all()
-    with pytest.raises(MXNetError, match="not ported"):
+    with pytest.raises(DeviceUnreachable):
         mx.kvstore.create("dist_sync")
+    with mx.cpu():
+        kv = mx.kvstore.create("dist_sync")
+    assert kv.device == torch.device("cpu") and kv.num_workers == 1
+    with pytest.raises(MXNetError, match="dist_async"):
+        mx.kvstore.create("dist_async")
 
 
 def test_nd_default_context_is_the_card_and_raises_without_one(monkeypatch):

@@ -44,17 +44,35 @@ Phases; any failure exits non-zero before the final line:
              on flash_attention and every LayerNorm on layer_norm.
 6. train_small — a narrow NHWC ResNetV1 (BottleneckV1, [1, 1],
              [16, 32, 64], 10 classes) trains 3 fp32 steps through
-             ShardedTrainer on the card (through the kernels) and on the
-             CPU (plain versions) from the same seeded weights: per-step
-             losses and final parameters must agree.
+             ShardedTrainer on the card (its CUDA-graph step, through the
+             kernels) and on the CPU (plain versions) from the same
+             seeded weights: per-step losses and final parameters must
+             agree.
 7. train   — ResNet-50 v1 at full width, NHWC, batch 128 at 224x224,
              bf16 compute over fp32 master parameters, SGD momentum 0.9
              through ShardedTrainer.step_many, as bench.py's _train_tput
-             sets it up: a warm window, then a timed one. Losses finite and
-             falling, no step skipped, and exactly 36 conv1x1_bn_stats and
-             1 fused_sgd_momentum launches per step, every conv1x1 of the
-             profiled step on the wgmma kernel; img/s, step ms, peak
-             memory, MFU and a torch.profiler breakdown of one step.
+             sets it up, on its CUDA-graph step and on the eager step
+             (MXTPU_CUDA_GRAPH=0) from the same weights: the first window
+             of 10 steps of each must leave bit-identical losses, weights,
+             momenta and BatchNorm statistics (cuDNN deterministic); then
+             a timed window of each. Losses finite and falling, no step
+             skipped, exactly 36 conv1x1_bn_stats and 1 fused_sgd_momentum
+             launches and 1 train.step.dispatches per step, every conv1x1
+             of a profiled step on the wgmma kernel; for each mode img/s,
+             step ms, the host's enqueue against the device ms of one
+             step, the busy share, peak memory, MFU and a torch.profiler
+             breakdown.
+7b. sharded_api — ShardedTrainer's API on the card, each case on the
+             graph step against the eager step from the same seeded
+             weights (the narrow ResNetV1, b16 at 32 px, fp32): Adam,
+             remat (full and dots_with_no_batch_dims_saveable),
+             aux_mode="predict" and fit over an NDArrayIter through
+             prefetched, 3 steps each, within 1e-5; and a Dropout MLP
+             whose graph replays draw new masks (the mean loss within 5
+             standard errors of the eager steps'), and a NaN in the
+             batch of a graph step (SGD and Adam) leaves every tensor
+             bit-identical and counts one skipped step. A failed capture
+             fails the phase.
 8. gluon_small — the same narrow NHWC ResNetV1 trains 3 fp32 steps
              through the Gluon loop (autograd.record, backward,
              gluon.Trainer.step; SGD momentum 0.9, wd 1e-4, lr 0.1 halved
@@ -430,6 +448,34 @@ def kernel_device_ms(fn, kernel, n=10, launches=1, tries=10):
               % (sum(c for _, c in seen), n * launches, names),
               file=sys.stderr, flush=True)
     return None
+
+
+# the device names of each wrapper's kernels (one launch a wrapper call)
+KERNEL_NAMES = {"flash_attention": ("flash_fwd_kernel",),
+                "layer_norm": ("layer_norm_kernel",),
+                "fused_sgd_momentum": ("sgd_momentum_kernel",),
+                "conv1x1_bn_stats": ("conv1x1_wgmma_kernel",
+                                     "conv1x1_wmma_kernel",
+                                     "conv1x1_simt_kernel")}
+
+
+def device_launches(fn, n, expect, tries=10):
+    """{kernel: launches the profiler saw over n calls of fn()}, by the
+    names of KERNEL_NAMES. A CUDA graph's replay calls no wrapper, so
+    this is how its launches are counted. The profiler can drop records,
+    so while a count is short of `expect` ({kernel: launches over the n
+    calls}) it profiles again, up to `tries` times; returns the last
+    counts."""
+    for _ in range(tries):
+        events = device_events(fn, n)
+        seen = {k: sum(c for name, (_, c) in events.items()
+                       if any(part in name for part in parts))
+                for k, parts in KERNEL_NAMES.items()}
+        if all(seen[k] >= v for k, v in expect.items()):
+            return seen
+        print("chip_smoke: the profiler saw %s over %d calls, want %s"
+              % (seen, n, expect), file=sys.stderr, flush=True)
+    return seen
 
 
 _KINDS = (("conv1x1_bn_stats", ("conv1x1_", "bn_stats_finalize")),
@@ -1046,7 +1092,7 @@ def train_small(dev):
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
                                                         ResNetV1)
-    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel
     rng = np.random.RandomState(2)
     x = rng.randn(8, 32, 32, 3).astype(np.float32)
     y = (np.arange(8) % 10).astype(np.float32)
@@ -1074,82 +1120,209 @@ def train_small(dev):
             param_err > param_tol:
         fail("train_small: card vs CPU losses %s vs %s, max param err %g "
              "(tol %g, %g)" % (lc, lh, param_err, loss_tol, param_tol))
-    # 3 bottlenecks' worth per forward: 2 body + 1 downsample, 2 blocks
-    if nc["conv1x1_bn_stats"] != 6 * 3 or nc["fused_sgd_momentum"] != 3 \
-            or any(nh.values()):
-        fail("train_small: launches card %s, CPU %s; want 18 "
-             "conv1x1_bn_stats and 3 fused_sgd_momentum on the card, none "
-             "on the CPU" % (nc, nh))
+    # 3 bottlenecks' worth per forward: 2 body + 1 downsample, 2 blocks;
+    # on the card the wrappers run in the graph's eager warm-up steps and
+    # its capture, and its 3 replays call none
+    steps = 1 + data_parallel._WARMUP
+    if nc["conv1x1_bn_stats"] != 6 * steps or \
+            nc["fused_sgd_momentum"] != steps or any(nh.values()):
+        fail("train_small: launches card %s, CPU %s; want %d "
+             "conv1x1_bn_stats and %d fused_sgd_momentum on the card (%d "
+             "warm-up steps and the capture), none on the CPU"
+             % (nc, nh, 6 * steps, steps, data_parallel._WARMUP))
     emit(phase="train_small", losses_card=lc, losses_cpu=lh,
          loss_max_abs_err=loss_err, param_max_abs_err=param_err,
          loss_tol=loss_tol, param_tol=param_tol, launches=nc)
 
 
+def _trainer_state(st):
+    """Every tensor of a ShardedTrainer's state: parameters, optimizer
+    state, BatchNorm statistics."""
+    def flat(d):
+        for v in d.values():
+            if isinstance(v, dict):
+                yield from flat(v)
+            else:
+                yield v
+    return [*st._params.values(), *flat({"s": st._opt_state}),
+            *st._aux.values()]
+
+
+def _graph_and_eager(make):
+    """Two trainers from `make()`: one on the CUDA-graph step, one eager
+    (MXTPU_CUDA_GRAPH=0 at construction)."""
+    os.environ["MXTPU_CUDA_GRAPH"] = "0"
+    try:
+        eager = make()
+    finally:
+        os.environ.pop("MXTPU_CUDA_GRAPH")
+    graph = make()
+    if eager._graph_on or not graph._graph_on:
+        fail("the trainers' step modes are %s and %s, want eager and graph"
+             % (eager._graph_on, graph._graph_on))
+    return graph, eager
+
+
 def train(dev, card):
     """ResNet-50 v1 training as bench.py's _train_tput sets it up, through
-    the port's ShardedTrainer.step_many. Returns the launch counts of the
-    timed window."""
+    the port's ShardedTrainer.step_many, on its CUDA-graph step and on the
+    eager step (MXTPU_CUDA_GRAPH=0), both from the same seeded weights:
+    the first window of each must leave bit-identical weights, momenta
+    and BatchNorm statistics (cuDNN's deterministic algorithms, as in
+    dist_train); then a timed window of each. The launch counters are
+    zeroed before each first window (the main path) and read after it:
+    the eager trainer's wrappers launch 36 conv1x1 and 1 SGD kernel a
+    step; the graph trainer's launch them in its warm-up steps and its
+    capture, and its replays call no wrapper, so their launches are
+    counted by the profiler over TRAIN_STEPS replays. Returns
+    {"graph_replays": the profiler's counts, "graph_capture": the graph
+    trainer's wrapper counts, "eager": the eager trainer's}."""
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.convert import init_resnet_params
     from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
-    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.observability import registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel
     from mxnet_tpu_torch.resilience import numerics
     t0 = time.perf_counter()
     net = resnet50_v1(layout="NHWC", device=dev)
     init_resnet_params(net, seed=0)
-    st = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
-                        {"learning_rate": 0.1, "momentum": 0.9},
-                        compute_dtype="bfloat16", device=dev)
-    n_params = sum(v.numel() for v in st.params.values())
+    graph, eager = _graph_and_eager(lambda: ShardedTrainer(
+        net, SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9},
+        compute_dtype="bfloat16", device=dev))
+    n_params = sum(v.numel() for v in graph.params.values())
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3).astype("float32")) \
         .to(dev)
     y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")).to(dev)
-    warm = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu().numpy()
-    numerics.drain_flags()
-    setup_s = time.perf_counter() - t0
-
-    # the main path, with every launch counter at 0 just before it
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    losses = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu().numpy()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    guard = numerics.drain_flags()
-
-    if not (np.isfinite(warm).all() and np.isfinite(losses).all()):
-        fail("train: non-finite loss: warm %s, timed %s" % (warm, losses))
-    if guard["skipped_steps"] or guard["anomalies"]:
-        fail("train: numerics guard reports %s" % guard)
-    if not losses[-1] < warm[0]:
-        fail("train: loss did not fall: first %g, last %g"
-             % (warm[0], losses[-1]))
-    if launches["conv1x1_bn_stats"] != 36 * TRAIN_STEPS or \
-            launches["fused_sgd_momentum"] != TRAIN_STEPS:
-        fail("train: launches %s over %d steps, want 36 conv1x1_bn_stats "
-             "and 1 fused_sgd_momentum per step" % (launches, TRAIN_STEPS))
-
-    # where one step's time goes: host wall of one step, device profile
-    t = time.perf_counter()
-    st.step_many(x, y, n_steps=1).cpu()
-    one_step_ms = (time.perf_counter() - t) * 1e3
-    events = device_events(lambda: st.step_many(x, y, n_steps=1), 1)
-    dev_us = {k: us for k, (us, _) in events.items()}
-    # every conv1x1 of the bf16 step must take the wgmma/TMA path: the
-    # wrapper picks the WMMA fallback from the shapes and pointers alone
-    conv_paths = {k[:90]: c for k, (_, c) in events.items()
-                  if "conv1x1_" in k}
-    if any("conv1x1_wmma_kernel" in k or "conv1x1_simt_kernel" in k
-           for k in conv_paths) or (events and not any(
-               "conv1x1_wgmma_kernel" in k for k in conv_paths)):
-        fail("train: the step's conv1x1 launches were %s, want only "
-             "conv1x1_wgmma_kernel" % conv_paths)
-    step_profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
-    step_profile["device_ms_by_kind"] = by_kind(dev_us, 1)
-    step_profile["conv1x1_kernels"] = conv_paths
+    disp = registry.counter("train.step.dispatches")
+    torch.backends.cudnn.deterministic = True
+    try:
+        # from one state, a window of each: bit for bit. Its peak memory
+        # holds a step's working set in both modes (the graph's warm-up
+        # and capture allocate it; its replays reuse the graph's pool)
+        # and the main path, with every launch counter at 0 just before it
+        warm, warm_s, warm_gb, counted = {}, {}, {}, {}
+        for mode, st in (("eager", eager), ("graph", graph)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            d0 = disp.get()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            warm[mode] = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu()
+            warm_s[mode] = time.perf_counter() - t   # graph: + capture
+            counted[mode] = ops.launch_counts()
+            warm_gb[mode] = torch.cuda.max_memory_allocated() / 1e9
+            # wrapper calls: eager, one a step; graph, one a warm-up step
+            # and one in the capture
+            calls = TRAIN_STEPS if mode == "eager" else \
+                data_parallel._WARMUP + 1
+            lc = counted[mode]
+            if lc["conv1x1_bn_stats"] != 36 * calls or \
+                    lc["fused_sgd_momentum"] != calls or \
+                    disp.get() - d0 != TRAIN_STEPS:
+                fail("train %s: the first window's wrappers launched %s and "
+                     "it made %d dispatches; want %d conv1x1_bn_stats, %d "
+                     "fused_sgd_momentum and %d dispatches"
+                     % (mode, lc, disp.get() - d0, 36 * calls, calls,
+                        TRAIN_STEPS))
+        numerics.drain_flags()
+        same = torch.equal(warm["eager"], warm["graph"]) and all(
+            torch.equal(a, b) for a, b in zip(_trainer_state(eager),
+                                              _trainer_state(graph)))
+        if not same:
+            fail("train: %d eager and %d graph steps from one state left "
+                 "different losses, weights, momenta or statistics"
+                 % (TRAIN_STEPS, TRAIN_STEPS))
+        setup_s = time.perf_counter() - t0
+        runs = {}
+        for mode, st in (("graph", graph), ("eager", eager)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            d0 = disp.get()
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            losses = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu().numpy()
+            wall = time.perf_counter() - t
+            launches = ops.launch_counts()
+            dispatches = disp.get() - d0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            guard = numerics.drain_flags()
+            if not np.isfinite(losses).all() or guard["skipped_steps"] or \
+                    guard["anomalies"]:
+                fail("train %s: losses %s, numerics guard %s"
+                     % (mode, losses, guard))
+            if not losses[-1] < warm[mode][0]:
+                fail("train %s: loss did not fall: first %g, last %g"
+                     % (mode, warm[mode][0], losses[-1]))
+            # the graph's replays call no wrapper; the eager step's call
+            # each one once a step
+            calls = 0 if mode == "graph" else TRAIN_STEPS
+            if launches["conv1x1_bn_stats"] != 36 * calls or \
+                    launches["fused_sgd_momentum"] != calls or \
+                    dispatches != TRAIN_STEPS:
+                fail("train %s: the wrappers launched %s and %d dispatches "
+                     "ran over %d steps, want %d conv1x1_bn_stats, %d "
+                     "fused_sgd_momentum and 1 dispatch a step"
+                     % (mode, launches, dispatches, TRAIN_STEPS, 36 * calls,
+                        calls))
+            if mode == "graph":
+                # what the replays launched, read on the device
+                want = {"conv1x1_bn_stats": 36 * TRAIN_STEPS,
+                        "fused_sgd_momentum": TRAIN_STEPS}
+                replayed = device_launches(
+                    lambda: st.step_many(x, y, n_steps=TRAIN_STEPS), 1, want)
+                if any(replayed[k] != v for k, v in want.items()) or \
+                        replayed["flash_attention"] or replayed["layer_norm"]:
+                    fail("train graph: the profiler saw %s over %d replays, "
+                         "want %s" % (replayed, TRAIN_STEPS, want))
+                numerics.drain_flags()
+            per_step = replayed if mode == "graph" else launches
+            # one step: the host's enqueue, the wall to its end, the device
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = st.step_many(x, y, n_steps=1)
+            host_ms = (time.perf_counter() - t) * 1e3
+            out.cpu()
+            one_step_ms = (time.perf_counter() - t) * 1e3
+            event_ms = cuda_ms(lambda: st.step_many(x, y, n_steps=1),
+                               iters=3, warmup=0)
+            events = device_events(lambda: st.step_many(x, y, n_steps=1), 1)
+            dev_us = {k: us for k, (us, _) in events.items()}
+            # every conv1x1 of the bf16 step must take the wgmma/TMA path:
+            # the wrapper picks the WMMA fallback from shapes and pointers
+            conv_paths = {k[:90]: c for k, (_, c) in events.items()
+                          if "conv1x1_" in k}
+            if any("conv1x1_wmma_kernel" in k or "conv1x1_simt_kernel" in k
+                   for k in conv_paths) or (events and not any(
+                       "conv1x1_wgmma_kernel" in k for k in conv_paths)):
+                fail("train %s: the step's conv1x1 launches were %s, want "
+                     "only conv1x1_wgmma_kernel" % (mode, conv_paths))
+            profile = breakdown(dev_us, 1, one_step_ms, top_n=12)
+            profile["host_enqueue_ms"] = host_ms
+            profile["cuda_event_ms"] = event_ms
+            profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+            profile["conv1x1_kernels"] = conv_paths
+            img_s = BATCH * TRAIN_STEPS / wall
+            runs[mode] = dict(
+                img_s=img_s, step_ms=wall / TRAIN_STEPS * 1e3, wall_s=wall,
+                mfu=FLOPS_PER_IMG * img_s / BF16_FLOP_S,
+                host_enqueue_ms=host_ms, one_step_ms=one_step_ms,
+                cuda_event_ms=event_ms, device_ms=profile["device_ms"],
+                device_busy_share=profile["device_busy_share"],
+                peak_mem_gb=peak_gb, losses=losses.tolist(),
+                conv1x1_bn_stats_a_step=per_step["conv1x1_bn_stats"] /
+                TRAIN_STEPS,
+                fused_sgd_momentum_a_step=per_step["fused_sgd_momentum"] /
+                TRAIN_STEPS,
+                launches_read_by="profiler over %d replays" % TRAIN_STEPS
+                if mode == "graph" else "wrapper counts",
+                train_step_dispatches_a_step=dispatches / TRAIN_STEPS,
+                wrapper_launches=launches, first_window_wrapper_launches=
+                counted[mode], numerics=guard, profile_one_step=profile)
+    finally:
+        torch.backends.cudnn.deterministic = False
     # the stride-2 subsample copies in front of the kernel (6 a forward:
     # the first block's conv0 and downsample in stages 2-4)
     acts = [torch.empty(BATCH, side, side, ch, device=dev,
@@ -1158,20 +1331,308 @@ def train(dev, card):
     subsample_ms = cuda_ms(lambda: [a[:, ::2, ::2, :].contiguous()
                                     for a in acts for _ in range(2)])
     del acts
-    step_ms = wall / TRAIN_STEPS * 1e3
-    img_s = BATCH * TRAIN_STEPS / wall
-    mfu = FLOPS_PER_IMG * img_s / BF16_FLOP_S
     emit(phase="train", card=card, model="ResNet-50 v1, NHWC, seeded "
          "random weights (Uniform 0.07)", params=n_params, batch=BATCH,
          image=IMG, dtype="bf16 compute, fp32 master", steps=TRAIN_STEPS,
-         img_s=img_s, step_ms=step_ms, wall_s=wall,
-         mfu=mfu, mfu_basis="3 x 4.089 GFLOP/img over %g FLOP/s bf16 dense"
-         % BF16_FLOP_S, peak_mem_gb=peak_gb, setup_s=setup_s,
-         losses_warm=warm.tolist(), losses=losses.tolist(),
-         launches=launches, numerics=guard,
-         stride2_subsample_ms_per_forward=subsample_ms,
-         profile_one_step=step_profile)
-    return launches
+         mfu_basis="3 x 4.089 GFLOP/img over %g FLOP/s bf16 dense"
+         % BF16_FLOP_S, setup_s=setup_s, cudnn_deterministic=True,
+         first_window_s=warm_s, first_window_peak_mem_gb=warm_gb,
+         losses_first_window=warm["graph"].tolist(),
+         graph_equals_eager_bit_for_bit=same,
+         state_tensors_compared=len(_trainer_state(graph)),
+         graphs_captured=len(graph._graphs), graph=runs["graph"],
+         eager=runs["eager"],
+         stride2_subsample_ms_per_forward=subsample_ms)
+    return {"graph_replays": replayed, "graph_capture": counted["graph"],
+            "eager": counted["eager"]}
+
+
+SHARDED_API = dict(batch=16, img=32, steps=3, tol=1e-5, dropout_steps=32,
+                   slow_batches=6, slow_s=0.02, replays=3)
+
+
+def _rel_err(a, b):
+    """max |a - b| / max(1, max |b|) over two lists of tensors."""
+    return max((float((x.double() - y.double()).abs().max()) /
+                max(1.0, float(y.double().abs().max())) if y.numel() else 0.0)
+               for x, y in zip(a, b))
+
+
+class _SlowBatches:
+    """(data, label) batches from a source that takes `delay` seconds a
+    batch, as a reader of files or a decoder does."""
+
+    def __init__(self, X, Y, batch, delay):
+        self._X, self._Y, self._b, self._delay = X, Y, batch, delay
+
+    def __iter__(self):
+        for i in range(0, len(self._X), self._b):
+            time.sleep(self._delay)
+            yield self._X[i:i + self._b], self._Y[i:i + self._b]
+
+
+class _StageDuringCapture:
+    """While on, every CUDA graph capture begins with another thread doing
+    what `prefetched`'s worker does between batches, and more: it pins a
+    host tensor of a size not seen before, copies it to the card with
+    ``non_blocking=True`` on a side stream, and allocates device memory
+    of a size not seen before (a fresh cudaHostAlloc and cudaMalloc);
+    the capture goes on once that thread has finished. Counts the
+    stagings and keeps the thread's errors."""
+
+    def __init__(self, dev):
+        self.dev, self.staged, self.errors = dev, 0, []
+
+    def _stage(self):
+        from mxnet_tpu_torch.parallel.prefetch import to_device
+        try:
+            side = torch.cuda.Stream(device=self.dev)
+            with torch.cuda.stream(side):
+                k = self.staged + 1
+                host = torch.full(((1 << 20) + 4096 * k,), float(k))
+                staged = to_device(host, self.dev)
+                fresh = torch.empty((256 << 20) + (4 << 20) * k,
+                                    dtype=torch.uint8, device=self.dev)
+                fresh[:1].fill_(1)
+                torch.cuda.Event().record(side)
+            del staged, fresh
+            self.staged += 1
+        except Exception as err:   # noqa: BLE001 — reported by the phase
+            self.errors.append("%s: %s" % (type(err).__name__, err))
+
+    def __enter__(self):
+        import threading
+        cls = torch.cuda.CUDAGraph
+        self._begin = begin = cls.capture_begin
+        outer = self
+
+        def capture_begin(graph, *args, **kwargs):
+            begin(graph, *args, **kwargs)
+            t = threading.Thread(target=outer._stage)
+            t.start()
+            t.join()
+        cls.capture_begin = capture_begin
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.CUDAGraph.capture_begin = self._begin
+
+
+def sharded_api(dev, card):
+    """ShardedTrainer's API on the card, each case on its CUDA-graph step
+    against the eager step from the same seeded weights: a narrow NHWC
+    ResNet V1 (train_small's) at b16, 32 px, fp32 (TF32 off), 3 steps
+    each of Adam, remat (full and dots_with_no_batch_dims_saveable),
+    aux_mode="predict", and `fit` over an NDArrayIter through
+    `prefetched`; then `fit` over a slow source of 6 batches whose
+    staging thread runs while the first step is captured, with another
+    thread's fresh pinned and device allocations inside the capture
+    (`_StageDuringCapture`); then `step`, `step_many(n_steps=2)` and
+    `step` on one trainer, two graphs in its one memory pool; losses and
+    every state tensor within 1e-5 of max(1, |eager|). The launches of each case's graph replays, read by
+    the profiler, must be the eager step's, which its wrappers count.
+    Then a net with Dropout(0.5) at lr 0: the graph's replays draw a new
+    mask each (the package generator registered with the graph), and
+    their mean loss lies within 5 standard errors of the eager steps'.
+    Last, a NaN in a graph step's batch must leave every state tensor
+    bit-identical (SGD: the kernel's veto flag; Adam: the gated writes).
+    Returns {"wrappers": the graph runs' wrapper counts (warm-up steps
+    and capture), "replays": the profiler's counts of the replays}."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.convert import init_resnet_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import (BottleneckV1,
+                                                        ResNetV1)
+    from mxnet_tpu_torch.observability import registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+    from mxnet_tpu_torch.resilience import numerics
+    cfg = SHARDED_API
+    rng = np.random.RandomState(11)
+    n = cfg["batch"] * cfg["steps"]
+    X = rng.randn(n, cfg["img"], cfg["img"], 3).astype(np.float32)
+    Y = (np.arange(n) % 10).astype(np.float32)
+    n_slow = cfg["batch"] * cfg["slow_batches"]
+    XS = rng.randn(n_slow, cfg["img"], cfg["img"], 3).astype(np.float32)
+    YS = (np.arange(n_slow) % 10).astype(np.float32)
+    x, y = torch.from_numpy(X[:cfg["batch"]]), torch.from_numpy(
+        Y[:cfg["batch"]])
+    sgd = ("sgd", {"learning_rate": 0.1, "momentum": 0.9})
+    cases = {"adam": ("adam", {"learning_rate": 0.01, "wd": 1e-4}, {}),
+             "remat": sgd + ({"remat": True},),
+             "remat_dots": sgd + ({"remat":
+                                   "dots_with_no_batch_dims_saveable"},),
+             "predict": sgd + ({"aux_mode": "predict"},),
+             "fit": sgd + ({},),
+             "fit_staging": sgd + ({},),
+             "two_graphs": sgd + ({},)}
+    disp = registry.counter("train.step.dispatches")
+    total = {"wrappers": {k: 0 for k in ops.launch_counts()},
+             "replays": {k: 0 for k in ops.launch_counts()}}
+    out = {}
+
+    def run(name, st):
+        """The case's steps on `st`: their losses, on the host."""
+        seen = []
+        if name == "fit":
+            st.fit(mx.io.NDArrayIter(X, Y, batch_size=cfg["batch"]),
+                   batch_end_callback=lambda e, i, l: seen.append(l.clone()))
+        elif name == "fit_staging":
+            st.fit(_SlowBatches(XS, YS, cfg["batch"], cfg["slow_s"]),
+                   batch_end_callback=lambda e, i, l: seen.append(l.clone()))
+        elif name == "two_graphs":
+            # step's guarded graph and step_many's unguarded one, in turns
+            # in the trainer's one memory pool
+            seen = [st.step(x, y), *st.step_many(x, y, n_steps=2),
+                    st.step(x, y)]
+        else:
+            seen = [st.step(x, y) for _ in range(cfg["steps"])]
+        return torch.stack(seen).cpu()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, (opt, hp, kw) in cases.items():
+            def make():
+                net = ResNetV1(BottleneckV1, [1, 1], [16, 32, 64],
+                               classes=10, layout="NHWC", device=dev)
+                init_resnet_params(net, seed=3)
+                return ShardedTrainer(net, SoftmaxCrossEntropyLoss(), opt,
+                                      dict(hp), device=dev, **kw)
+            graph, eager = _graph_and_eager(make)
+            steps = {"fit_staging": cfg["slow_batches"],
+                     "two_graphs": 4}.get(name, cfg["steps"])
+            n_graphs = 2 if name == "two_graphs" else 1
+            losses, counted, dispatches = {}, {}, {}
+            stager = _StageDuringCapture(dev)
+            numerics.drain_flags()
+            for mode, st in (("graph", graph), ("eager", eager)):
+                ops.reset_launch_counts()
+                d0 = disp.get()
+                try:
+                    if name == "fit_staging" and mode == "graph":
+                        with stager:
+                            losses[mode] = run(name, st)
+                    else:
+                        losses[mode] = run(name, st)
+                except Exception as err:   # a failed capture fails here
+                    fail("sharded_api %s (%s): %s: %s"
+                         % (name, mode, type(err).__name__, err))
+                counted[mode] = ops.launch_counts()
+                dispatches[mode] = disp.get() - d0
+            guard = numerics.drain_flags()
+            err = max(_rel_err([losses["graph"]], [losses["eager"]]),
+                      _rel_err(_trainer_state(graph), _trainer_state(eager)))
+            if not (err <= cfg["tol"] and torch.isfinite(
+                    losses["graph"]).all() and
+                    len(graph._graphs) == n_graphs and
+                    dispatches["graph"] == steps and not guard["anomalies"]):
+                fail("sharded_api %s: graph against eager %g (tol %g), "
+                     "losses %s / %s, %d graphs, %d dispatches over %d steps, "
+                     "guard %s" % (name, err, cfg["tol"],
+                                   losses["graph"].tolist(),
+                                   losses["eager"].tolist(),
+                                   len(graph._graphs), dispatches["graph"],
+                                   steps, guard))
+            if name == "fit_staging" and (stager.errors or
+                                          stager.staged != 1):
+                fail("sharded_api fit_staging: %d stagings during the "
+                     "capture, errors %s" % (stager.staged, stager.errors))
+            # the replays launch what the eager step's wrappers launch
+            r = cfg["replays"]
+            want = {k: v // steps * r for k, v in counted["eager"].items()}
+            if any(v % steps for v in counted["eager"].values()):
+                fail("sharded_api %s: the eager wrappers launched %s over "
+                     "%d steps" % (name, counted["eager"], steps))
+            replayed = device_launches(lambda: graph.step(x, y), r, want)
+            numerics.drain_flags()
+            if replayed != {k: want.get(k, 0) for k in replayed} or \
+                    len(graph._graphs) != n_graphs:
+                fail("sharded_api %s: the profiler saw %s over %d replays, "
+                     "want the eager step's %s (%d graphs)"
+                     % (name, replayed, r, want, len(graph._graphs)))
+            for k in total["wrappers"]:
+                total["wrappers"][k] += counted["graph"][k]
+                total["replays"][k] += replayed[k]
+            out[name] = dict(max_rel_err=err, losses=losses["graph"].tolist(),
+                             dispatches=dispatches["graph"],
+                             wrapper_launches=counted["graph"],
+                             eager_wrapper_launches=counted["eager"],
+                             replays_profiled=r, replay_launches=replayed)
+            if name == "fit_staging":
+                out[name]["stagings_during_capture"] = stager.staged
+        out["dropout"] = _dropout_under_graph(dev, mx, ShardedTrainer,
+                                              _graph_and_eager)
+        # a non-finite gradient on the graph step: the SGD kernel's veto
+        # flag and the gated writes leave every tensor as it was
+        for opt, hp in (("sgd", {"learning_rate": 0.1, "momentum": 0.9}),
+                        ("adam", {"learning_rate": 0.01})):
+            net = ResNetV1(BottleneckV1, [1, 1], [16, 32, 64], classes=10,
+                           layout="NHWC", device=dev)
+            init_resnet_params(net, seed=3)
+            st = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), opt, hp,
+                                device=dev)
+            st.step(x, y)
+            numerics.drain_flags()
+            before = [t.clone() for t in _trainer_state(st)]
+            bad = x.clone()
+            bad[0, 0, 0, 0] = float("nan")
+            loss = float(st.step(bad, y))
+            guard = numerics.drain_flags()
+            kept = all(torch.equal(a, b) for a, b in
+                       zip(before, _trainer_state(st)))
+            if np.isfinite(loss) or not kept or \
+                    guard["skipped_steps"] != 1 or len(st._graphs) != 1:
+                fail("sharded_api nan (%s): loss %g, state kept %s, guard "
+                     "%s, %d graphs" % (opt, loss, kept, guard,
+                                        len(st._graphs)))
+            out["nan_" + opt] = dict(state_kept_bit_for_bit=kept,
+                                     skipped_steps=guard["skipped_steps"])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit(phase="sharded_api", card=card, model="ResNetV1 BottleneckV1 "
+         "[1, 1] [16, 32, 64], NHWC, fp32, seeded weights", batch=cfg["batch"],
+         image=cfg["img"], steps=cfg["steps"], tol=cfg["tol"],
+         cudnn_deterministic=True, cases=out)
+    return total
+
+
+def _dropout_under_graph(dev, mx, ShardedTrainer, pair):
+    """An MLP with Dropout(0.5) at lr 0 (its weights never move): each
+    graph replay draws a new mask, and the mean of the graph's losses
+    lies within 5 standard errors of the eager steps' mean."""
+    n = SHARDED_API["dropout_steps"]
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(64, 32).astype(np.float32))
+    y = torch.from_numpy((np.arange(64) % 10).astype(np.float32))
+
+    def make():
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(256, activation="relu", in_units=32,
+                                  device=dev),
+                mx.gluon.nn.Dropout(0.5),
+                mx.gluon.nn.Dense(10, in_units=256, device=dev))
+        g = torch.Generator().manual_seed(12)
+        net.load_parameters({k: torch.randn(v.shape, generator=g) * 0.1
+                             for k, v in net.state_dict().items()})
+        return ShardedTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "sgd", {"learning_rate": 0.0}, device=dev)
+    graph, eager = pair(make)
+    try:
+        lg = torch.stack([graph.step(x, y) for _ in range(n)]).cpu().double()
+    except Exception as err:
+        fail("sharded_api dropout (graph): %s: %s" % (type(err).__name__,
+                                                       err))
+    le = torch.stack([eager.step(x, y) for _ in range(n)]).cpu().double()
+    se = float(((lg.var() + le.var()) / n).sqrt())
+    gap = abs(float(lg.mean() - le.mean()))
+    distinct = len(set(lg.tolist()))
+    if distinct < n // 2 or gap > 5 * se:
+        fail("sharded_api dropout: %d distinct losses over %d replays, "
+             "mean %g against eager %g (5 standard errors: %g)"
+             % (distinct, n, float(lg.mean()), float(le.mean()), 5 * se))
+    return dict(steps=n, distinct_graph_losses=distinct,
+                graph_mean=float(lg.mean()), eager_mean=float(le.mean()),
+                standard_error=se)
 
 
 # ---------------------------------------------------------------------------
@@ -3406,6 +3867,7 @@ def main():
     # phases 6, 7: training
     train_small(dev)
     train_launches = train(dev, card)
+    api_launches = sharded_api(dev, card)
     # phases 8, 9: the Gluon loop
     gluon_small(dev)
     gluon_launches, gluon_img_s = gluon_train(dev, card)
@@ -3428,7 +3890,12 @@ def main():
     # phases 23-24: the distributed KVStore and the fused step
     small_dist_launches = dist_small(dev, card)
     dist_launches = dist_train(dev, card, gluon_img_s)
-    by_path = {name: {"train": train_launches[name],
+    by_path = {name: {"train": train_launches["graph_replays"][name],
+                      "train_graph_capture":
+                          train_launches["graph_capture"][name],
+                      "train_eager": train_launches["eager"][name],
+                      "sharded_api": api_launches["replays"][name],
+                      "sharded_api_wrappers": api_launches["wrappers"][name],
                       "gluon_train": gluon_launches[name],
                       "nd_gpt": gpt_nd["launches"][name],
                       "gluon_cifar": cifar_launches[name],

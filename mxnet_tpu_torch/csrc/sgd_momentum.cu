@@ -302,19 +302,22 @@ int launch(const void* table, const void* const* grads, int ntensors,
 // by first chunk; grads: host array of the ntensors gradient pointers (<=
 // mxtpu_sgd_momentum_max_tensors()), in table order; nchunks: the total
 // number of chunks. dtype is w's and g's: 0 = float32, 1 = bfloat16; m is
-// float32; device: the tensors' CUDA device. Returns the cudaError_t of the
-// launch.
+// float32; ok: a device bool, the launch writes nothing when it is false
+// (the numerics guard's verdict; no host read, so a CUDA graph can hold
+// the launch); null: always update. device: the tensors' CUDA device.
+// Returns the cudaError_t of the launch.
 extern "C" int mxtpu_sgd_momentum(const void* table, const void* const* grads,
                                   int ntensors, long long nchunks, int dtype,
                                   float lr, float momentum, float wd,
-                                  float rescale, int device, void* stream) {
+                                  float rescale, const void* ok, int device,
+                                  void* stream) {
   const Hyper h{lr, momentum, wd, rescale, -1.f, true};
   if (dtype == 0)
     return launch<MomentumForm<float>>(table, grads, ntensors, nchunks, h,
-                                       nullptr, device, stream);
+                                       ok, device, stream);
   if (dtype == 1)
     return launch<MomentumForm<__nv_bfloat16>>(table, grads, ntensors,
-                                               nchunks, h, nullptr, device,
+                                               nchunks, h, ok, device,
                                                stream);
   return cudaErrorInvalidValue;
 }

@@ -19,11 +19,12 @@ writes its storage in place). With 2-bit compression on a 'device'
 store, each value of a key is compressed (its residual per key and
 slot) before the sum.
 
-'dist_sync', 'dist_device_sync', 'tpu_dist' and 'dist' are the
-cross-process store, `parallel.kvstore_dist.DistKVStore`, over
-torch.distributed. 'dist_async' raises: asynchronous updates have no
-counterpart in a synchronous collective (the JAX package's documented
-gap). Row-sparse pulls wait for sparse storage.
+'dist_sync', 'dist_device_sync', 'dist_async', 'tpu_dist' and 'dist' are
+the cross-process store, `parallel.kvstore_dist.DistKVStore`, over
+torch.distributed. 'dist_async' is the synchronous store under that name,
+as in the JAX package (kvstore.py:453-456): the name is accepted for
+compatibility, and its updates are synchronous. Row-sparse pulls wait for
+sparse storage.
 
 Counters: ``kvstore.push.{bytes,calls,seconds}`` and
 ``kvstore.pull.{bytes,calls,seconds}``. A push survives a
@@ -45,7 +46,8 @@ from .resilience.retry import RetryPolicy, TransientError, retry_call
 
 __all__ = ["KVStore", "create"]
 
-_DIST = ("dist_sync", "dist_device_sync", "tpu_dist", "dist")
+_DIST = ("dist_sync", "dist_device_sync", "dist_async", "tpu_dist",
+         "dist")
 
 _PUSH_BYTES = _obs.counter("kvstore.push.bytes",
                            "Gradient bytes pushed into the kvstore")
@@ -317,8 +319,4 @@ def create(name="local"):
     if name in _DIST:
         from .parallel.kvstore_dist import DistKVStore
         return DistKVStore(name)
-    if name == "dist_async":
-        raise MXNetError("kvstore 'dist_async': asynchronous updates have "
-                         "no counterpart in a synchronous collective; use "
-                         "'dist_sync'")
     raise MXNetError("unknown kvstore type %r" % name)

@@ -6,7 +6,10 @@ package registers: `math`, `tensor`, `nn`, `random_ops`, `init_ops`,
 
 Each wrapper counts its kernel launches in ``<wrapper>.launches``;
 `launch_counts` reads them and `reset_launch_counts` zeroes them, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. A CUDA graph
+replays the launches captured in it without calling their wrappers, so
+the counts hold a capture's launches and no replay's; a profiler of the
+device sees the replays'.
 """
 from . import registry
 from . import math        # noqa: F401
@@ -26,7 +29,8 @@ __all__ = ["Conv1x1BNStats", "SGDMomentumPlan", "attention_plain",
            "conv1x1_bn_nhwc", "conv1x1_bn_stats", "conv1x1_bn_stats_plain",
            "flash_attention", "fused_sgd_momentum", "fuses_bn_stats",
            "layer_norm",
-           "layer_norm_plain", "launch_counts", "nn", "registry",
+           "layer_norm_plain", "launch_counts", "nn",
+           "registry",
            "reset_launch_counts",
            "sgd_momentum_plain", "sgd_mxnet_plain"]
 
@@ -42,3 +46,4 @@ def launch_counts():
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+

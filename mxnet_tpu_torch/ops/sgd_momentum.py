@@ -54,7 +54,8 @@ def _kernel():
         fn = lib.mxtpu_sgd_momentum
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_longlong, ctypes.c_int] + [
-                           ctypes.c_float] * 4 + [ctypes.c_int,
+                           ctypes.c_float] * 4 + [ctypes.c_void_p,
+                                                  ctypes.c_int,
                                                   ctypes.c_void_p]
         fn.restype = ctypes.c_int
         mx = lib.mxtpu_sgd_mxnet
@@ -193,9 +194,11 @@ class SGDMomentumPlan:
     `ms` are the velocities (None: momentum 0, no state), of w's dtype;
     `weights`, for multi-precision, the low-precision weights that `ws`
     (fp32 masters, with fp32 `ms`) are the masters of, written in the same
-    launch. Its call takes ``clip`` (None: no clipping) and ``ok``, a 0-d
-    bool tensor on the plan's device: when it is false, nothing is
-    written (on the card the launch reads it; no host read).
+    launch. Its call takes ``clip`` (None: no clipping).
+
+    A call of either form takes ``ok``, a 0-d bool tensor on the plan's
+    device: when it is false, nothing is written (on the card the launch
+    reads it; no host read, so a CUDA graph can capture the call).
     """
 
     def __init__(self, ws, ms, form="m", weights=None):
@@ -254,9 +257,8 @@ class SGDMomentumPlan:
                     or not g.is_contiguous():
                 _check_grads(gs, self._shapes, dt, self._dev)
         mxnet = self._form == "mxnet"
-        if not mxnet and (clip is not None or ok is not None):
-            raise MXNetError("fused_sgd_momentum: clip and ok are MXNet's "
-                             "form's")
+        if not mxnet and clip is not None:
+            raise MXNetError("fused_sgd_momentum: clip is MXNet's form's")
         if mxnet and momentum and self._ms is None:
             raise MXNetError("fused_sgd_momentum: momentum %g needs the "
                              "velocities the plan was built without"
@@ -283,20 +285,21 @@ class SGDMomentumPlan:
             else:
                 rc = _fn(table.data_ptr(), ptrs, len(idx), nchunks, code,
                          float(lr), float(momentum), float(wd),
-                         float(rescale), di, stream)
+                         float(rescale), None if ok is None else
+                         ok.data_ptr(), di, stream)
             _build.check_launch(rc, "fused_sgd_momentum")
             fused_sgd_momentum.launches += 1
 
     def _plain(self, gs, lr, momentum, wd, rescale, clip, ok):
         """The CPU path: the plain version per tensor, in place."""
+        if ok is not None and not bool(ok):
+            return
         if self._form == "m":
             for w, g, m in zip(self._ws, gs, self._ms):
                 w_new, m_new = sgd_momentum_plain(w, g, m, lr, momentum, wd,
                                                   rescale)
                 w.copy_(w_new)
                 m.copy_(m_new)
-            return
-        if ok is not None and not bool(ok):
             return
         for i, (w, g) in enumerate(zip(self._ws, gs)):
             v = self._ms[i] if self._ms is not None else None

@@ -75,7 +75,7 @@ def zero1_enabled():
 def _refuse_zero1():
     if zero1_enabled():
         raise MXNetError("MXTPU_ZERO1=1: ZeRO-1 sharding of the optimizer "
-                         "state is not ported yet (ROADMAP A6b); unset it")
+                         "state is not ported yet (ROADMAP A6c); unset it")
 
 
 def _exchange_plan(kvstore):

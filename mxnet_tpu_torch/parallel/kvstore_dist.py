@@ -10,9 +10,10 @@ There are no parameter servers: every process runs the same program and
 a push is an allreduce. `init_distributed` reads the rendezvous that
 `tools/launch.py` exports (``JAX_COORDINATOR_ADDRESS`` or
 ``COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` or ``DMLC_NUM_WORKER``,
-``JAX_PROCESS_ID`` or ``DMLC_WORKER_ID``) and calls
-``torch.distributed.init_process_group(init_method="tcp://<address>")``;
-with none of them set it does nothing and the store is one process.
+``JAX_PROCESS_ID`` or ``DMLC_WORKER_ID``), meets its peers at a
+`torch.distributed.TCPStore` on that address and calls
+``torch.distributed.init_process_group(store=...)``; with none of them
+set it does nothing and the store is one process.
 
 Each rank's device is ``gpu(rank % torch.cuda.device_count())``, or the
 CPU when the caller's context is ``mx.cpu()``; without a card and without
@@ -38,6 +39,11 @@ result is bit-identical. At one process no collective runs; a
 compressing store still round-trips through the quantizer, so training
 does not depend on the process count.
 
+Timeouts, as JAX's: ``MXTPU_DIST_INIT_TIMEOUT_S`` bounds the rendezvous
+alone; `barrier` waits at most ``MXTPU_BARRIER_TIMEOUT_S`` (default 600)
+and a bucket's collective at most ``MXTPU_WATCHDOG_COLLECTIVE_S`` (default
+0: the group's own timeout), then raises `DeadlineExceeded`.
+
 Counters: ``kvstore.allreduce.{bytes,calls,seconds}`` (this process's
 bytes entering each collective: packed words when compressed),
 ``kvstore.bucket.*`` and ``train.step.dispatches`` (one per collective).
@@ -47,16 +53,19 @@ from __future__ import annotations
 import datetime
 import os
 import time
+import urllib.parse
 
 import torch
 import torch.distributed as dist
+from torch.distributed.constants import default_pg_timeout
 
 from ..base import MXNetError, getenv
 from ..context import Context, resolve_device
 from ..kvstore import (KVStore, _key_value, _priority_order, _sum, _values)
 from ..observability import registry as _obs
 from ..resilience import numerics as _num
-from ..resilience.retry import RetryPolicy, TransientError, retry_call
+from ..resilience.retry import (DeadlineExceeded, RetryPolicy,
+                                TransientError, retry_call)
 from .bucketing import (BUCKET_COUNT, BUCKET_FILL, BUCKET_KEYS,
                         PACK_SECONDS, UNPACK_SECONDS, GradBucketer,
                         finite_all)
@@ -113,10 +122,14 @@ def init_distributed(coordinator_address=None, num_processes=None,
     """Join the process group (the DMLC scheduler rendezvous's analog).
     A no-op when the group exists or no coordinator is configured.
 
-    Each attempt is bounded by ``MXTPU_DIST_INIT_TIMEOUT_S`` (when set)
-    and a failed rendezvous is retried with exponential backoff
-    (``MXTPU_DIST_INIT_RETRIES``, default 3; ``MXTPU_DIST_INIT_BACKOFF_S``,
-    default 1.0)."""
+    The rendezvous is a `TCPStore` at the coordinator's address (rank 0
+    serves it). ``MXTPU_DIST_INIT_TIMEOUT_S`` (when set) bounds each
+    attempt's waits on that store and nothing else, as JAX's
+    ``initialization_timeout`` does: the group itself keeps torch's
+    default timeout, so a collective that waits long for a slow peer is
+    not cut at the init knob. A failed rendezvous is retried with
+    exponential backoff (``MXTPU_DIST_INIT_RETRIES``, default 3;
+    ``MXTPU_DIST_INIT_BACKOFF_S``, default 1.0)."""
     if dist.is_initialized():
         return
     env = os.environ
@@ -134,17 +147,22 @@ def init_distributed(coordinator_address=None, num_processes=None,
     backend = _backend(device)
     kwargs = {}
     timeout = getenv("MXTPU_DIST_INIT_TIMEOUT_S", 0.0)
-    if timeout > 0:
-        kwargs["timeout"] = datetime.timedelta(seconds=timeout)
+    store_timeout = datetime.timedelta(seconds=timeout) if timeout > 0 \
+        else default_pg_timeout
     if backend == "nccl":
         torch.cuda.set_device(device)
         # binds the group to the card and creates NCCL's communicator now
         kwargs["device_id"] = device
+    url = urllib.parse.urlparse("tcp://%s" % coordinator_address)
+    world, rank = int(num_processes), int(process_id)
 
     def _attempt():
-        dist.init_process_group(
-            backend, init_method="tcp://%s" % coordinator_address,
-            world_size=int(num_processes), rank=int(process_id), **kwargs)
+        # multi_tenant: a retry in this process reuses rank 0's server
+        store = dist.TCPStore(url.hostname, url.port, world,
+                              is_master=rank == 0,
+                              timeout=store_timeout, multi_tenant=True)
+        dist.init_process_group(backend, store=store, world_size=world,
+                                rank=rank, **kwargs)
 
     retry_call(_attempt, policy=RetryPolicy(
         max_attempts=getenv("MXTPU_DIST_INIT_RETRIES", 3),
@@ -155,17 +173,41 @@ def init_distributed(coordinator_address=None, num_processes=None,
         what="dist.init"))
 
 
+def wait_bounded(work, timeout_s, what):
+    """Wait for a collective's `work`; with `timeout_s` > 0, at most that
+    long, then raise `DeadlineExceeded` naming `what` and the budget (the
+    collective is left to the backend). A timed-out ``wait(timeout=)``
+    raises (gloo) or returns False; an error raised before the budget
+    ran out (a peer that closed its connection) propagates as it is."""
+    if timeout_s <= 0:
+        work.wait()
+        return
+    t0 = time.monotonic()
+    try:
+        done = work.wait(timeout=datetime.timedelta(seconds=timeout_s))
+    except RuntimeError as err:
+        if time.monotonic() - t0 < timeout_s:
+            raise
+        raise DeadlineExceeded("%s did not complete within %gs"
+                               % (what, timeout_s)) from err
+    if done is False:
+        raise DeadlineExceeded("%s did not complete within %gs"
+                               % (what, timeout_s))
+
+
 class _Pending:
-    """A bucket's collective in flight: `result()` waits for it and
-    returns the reduced flat on the flat's device."""
+    """A bucket's collective in flight: `result()` waits for it (at most
+    ``MXTPU_WATCHDOG_COLLECTIVE_S`` when that is set) and returns the
+    reduced flat on the flat's device."""
 
-    __slots__ = ("_work", "_done", "_t0")
+    __slots__ = ("_work", "_done", "_t0", "_timeout_s", "_what")
 
-    def __init__(self, work, done, t0):
+    def __init__(self, work, done, t0, timeout_s=0.0, what="collective"):
         self._work, self._done, self._t0 = work, done, t0
+        self._timeout_s, self._what = timeout_s, what
 
     def result(self):
-        self._work.wait()
+        wait_bounded(self._work, self._timeout_s, self._what)
         out = self._done()
         _AR_SECONDS.observe(time.perf_counter() - self._t0)
         return out
@@ -184,6 +226,9 @@ class DistKVStore(KVStore):
         else:
             self._backend, self._nproc = None, 1
         self._bucketer = GradBucketer()        # MXTPU_BUCKET_MB
+        # 0: a collective waits as long as the group's own timeout
+        self._collective_timeout_s = getenv("MXTPU_WATCHDOG_COLLECTIVE_S",
+                                            0.0)
         self.last_wire_bytes = 0
 
     def set_bucket_size_mb(self, mb):
@@ -211,12 +256,15 @@ class DistKVStore(KVStore):
         _AR_BYTES.inc(flat.numel() * flat.element_size())
         _AR_CALLS.inc()
         _STEP_DISPATCHES.inc()
+        what = "allreduce of %d bytes" % (flat.numel() * flat.element_size())
         if self._host_staged(flat):
             host = flat.cpu()
             work = dist.all_reduce(host, async_op=True)
-            return _Pending(work, lambda: flat.copy_(host), t0)
+            return _Pending(work, lambda: flat.copy_(host), t0,
+                            self._collective_timeout_s, what)
         work = dist.all_reduce(flat, async_op=True)
-        return _Pending(work, lambda: flat, t0)
+        return _Pending(work, lambda: flat, t0, self._collective_timeout_s,
+                        what)
 
     def _allgather_async(self, words, finish):
         """Start an all-gather of this rank's int32 `words`; `finish`
@@ -230,7 +278,9 @@ class DistKVStore(KVStore):
         parts = [torch.empty_like(src) for _ in range(self._nproc)]
         work = dist.all_gather(parts, src, async_op=True)
         return _Pending(work, lambda: finish(
-            [p.to(words.device) for p in parts]), t0)
+            [p.to(words.device) for p in parts]), t0,
+            self._collective_timeout_s,
+            "all-gather of %d bytes" % self.last_wire_bytes)
 
     def _dequant_sum(self, parts, shape, dtype):
         """Every rank's words dequantized and added in rank order."""
@@ -338,6 +388,13 @@ class DistKVStore(KVStore):
                                                    flat.dtype))
 
     def barrier(self):
-        """Wait for every process (kvstore.py Barrier)."""
+        """Wait for every process (kvstore.py Barrier), at most
+        ``MXTPU_BARRIER_TIMEOUT_S`` seconds (default 600), then raise
+        `DeadlineExceeded`, as JAX's barrier does (its :570-588): a dead
+        peer fails the barrier with a diagnosable error instead of
+        hanging this process."""
         if self._nproc > 1:
-            dist.barrier()
+            wait_bounded(dist.barrier(async_op=True),
+                         getenv("MXTPU_BARRIER_TIMEOUT_S", 600.0),
+                         "kvstore barrier across %d processes"
+                         % self._nproc)

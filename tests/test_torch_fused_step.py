@@ -289,7 +289,7 @@ def test_zero1_raises(monkeypatch):
     monkeypatch.setenv("MXTPU_ZERO1", "1")
     net = _port_net()
     tr = gluon.Trainer(net.collect_params(), "sgd", dict(learning_rate=0.1))
-    with pytest.raises(MXNetError, match="ZeRO-1.*A6b"):
+    with pytest.raises(MXNetError, match="ZeRO-1.*A6c"):
         _port_step(net, tr, 0)
     monkeypatch.setenv("MXTPU_FUSED_STEP", "0")
     _port_step(net, tr, 0)          # the staged path has no ZeRO-1

@@ -190,9 +190,9 @@ def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
     moved, without device="cpu" raises when there is no card; asked for
     the CPU, record -> backward -> Trainer.step runs there. The
     distributed kvstore is the same: on the card, or on the CPU when
-    asked; 'dist_async' is refused."""
+    asked; 'dist_async' is the synchronous store under that name."""
     import mxnet_tpu_torch as mx
-    from mxnet_tpu_torch import MXNetError, autograd, gluon
+    from mxnet_tpu_torch import autograd, gluon
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(DeviceUnreachable):
         gluon.nn.Dense(2, in_units=3)
@@ -215,8 +215,12 @@ def test_gluon_loop_entry_points_raise_without_cuda(monkeypatch):
     with mx.cpu():
         kv = mx.kvstore.create("dist_sync")
     assert kv.device == torch.device("cpu") and kv.num_workers == 1
-    with pytest.raises(MXNetError, match="dist_async"):
+    with pytest.raises(DeviceUnreachable):
         mx.kvstore.create("dist_async")
+    with mx.cpu():
+        kv = mx.kvstore.create("dist_async")
+    assert kv.type == "dist_async" and kv.device == torch.device("cpu")
+    assert kv.num_workers == 1
 
 
 def test_nd_default_context_is_the_card_and_raises_without_one(monkeypatch):
@@ -303,3 +307,46 @@ def test_module_binds_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     mod = mx.mod.Module(net, label_names=None, context=mx.cpu())
     mod.bind([("data", (2, 4))])
     assert mod._exec_group.exec_.arg_dict["data"].context == mx.cpu()
+
+
+def test_sharded_trainer_api_runs_with_jax_blocked():
+    """parallel.mesh, parallel.prefetch and ShardedTrainer's API in a fresh
+    interpreter with imports of JAX and of mxnet_tpu blocked: a mesh, a
+    trainer on it (Adam, remat, a parameter rule), and `fit` over an
+    NDArrayIter through the prefetcher, on the CPU."""
+    code = r"""
+import sys
+BLOCK = ("jax", "jaxlib", "mxnet_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import of " + name)
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
+    del sys.modules[m]
+sys.meta_path.insert(0, Block())
+import numpy as np
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.parallel import mesh, prefetch
+from mxnet_tpu_torch.parallel import ShardedTrainer
+with mx.cpu():
+    m = mesh.make_mesh({"dp": 1, "tp": 1})
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(8, activation="relu", in_units=5),
+            mx.gluon.nn.Dense(3, in_units=8))
+    net.initialize(ctx=mx.cpu())
+    st = ShardedTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                        {"learning_rate": 0.01}, mesh=m, remat=True,
+                        param_rules=[("dense0_weight", ("tp",))])
+    it = mx.io.NDArrayIter(np.random.RandomState(0).randn(12, 5)
+                           .astype(np.float32),
+                           (np.arange(12) % 3).astype(np.float32),
+                           batch_size=4)
+    loss = st.fit(it, num_epochs=2)
+    assert np.isfinite(float(loss)) and int(st.opt_state["t"]) == 6
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr

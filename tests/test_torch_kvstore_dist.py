@@ -21,7 +21,11 @@ collective per bucket, 2-bit compression on the wire). Here:
   in another order);
 - with compression the ranks equal the exact oracle bit for bit;
 - a rank started by explicit arguments joins a gang too (2 ranks);
-  'dist_async' raises.
+  'dist_async' is the synchronous store under that name, as in JAX;
+- the timeouts are JAX's (two 2-rank gangs): ``MXTPU_DIST_INIT_TIMEOUT_S``
+  bounds the rendezvous alone, so a barrier waits for a peer that comes
+  later than it; ``MXTPU_BARRIER_TIMEOUT_S`` bounds the barrier, which
+  raises `DeadlineExceeded` when a peer never comes.
 """
 import os
 import signal
@@ -39,7 +43,6 @@ import torch
 import mxnet_tpu as jmx
 from mxnet_tpu import gluon as jgluon
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import MXNetError
 import torch_dist_worker as w
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -70,11 +73,11 @@ def _env():
     return env
 
 
-def _run_gang(argvs, timeout):
-    """Start each argv in its own session; wait for all within `timeout`
-    seconds, then kill every process group still alive. Returns
-    [(returncode, output)]."""
-    procs = [subprocess.Popen(a, cwd=ROOT, env=_env(),
+def _run_gang(argvs, timeout, env=None):
+    """Start each argv in its own session (with `env` added to the
+    environment); wait for all within `timeout` seconds, then kill every
+    process group still alive. Returns [(returncode, output)]."""
+    procs = [subprocess.Popen(a, cwd=ROOT, env={**_env(), **(env or {})},
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT,
                               start_new_session=True) for a in argvs]
@@ -230,8 +233,98 @@ def test_a_rank_started_by_explicit_arguments_joins(tmp_path):
 
 
 def test_dist_async_raises():
-    with pytest.raises(MXNetError, match="dist_async"):
-        mx.kv.create("dist_async")
+    """'dist_async' no longer raises: as in the JAX package
+    (kvstore.py:453-456), it is the synchronous distributed store under
+    that name, here at one process on the CPU."""
+    from mxnet_tpu_torch.parallel.kvstore_dist import DistKVStore
+    with mx.cpu():
+        kv = mx.kv.create("dist_async")
+    assert isinstance(kv, DistKVStore) and kv.type == "dist_async"
+    assert kv.num_workers == 1 and kv.device == torch.device("cpu")
+    kv.init(3, torch.ones(2))
+    kv.push(3, torch.full((2,), 2.0))
+    out = torch.zeros(2)
+    kv.pull(3, out=out)
+    assert out.tolist() == [2.0, 2.0]
+    kv.barrier()
+
+
+BARRIER_GANG_S = 60
+# one rank of a 2-rank gloo gang on the CPU: argv COORDINATOR RANK MODE
+# FLAG. "late": rank 1 reaches the barrier 8 s after rank 0. "never": rank
+# 1 never reaches it; it waits for rank 0's FLAG file, then leaves.
+BARRIER_WORKER = r"""
+import os, sys, time
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+from mxnet_tpu_torch.resilience.retry import DeadlineExceeded
+coordinator, rank, mode, flag = sys.argv[1], int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+with mx.cpu():
+    init_distributed(coordinator, 2, rank)
+    kv = mx.kv.create("dist_sync")
+    if mode == "late":
+        if rank == 1:
+            time.sleep(8)
+        t0 = time.monotonic()
+        kv.barrier()
+        print("BARRIER_OK_%d %.3f" % (rank, time.monotonic() - t0),
+              flush=True)
+    elif rank == 0:
+        t0 = time.monotonic()
+        try:
+            kv.barrier()
+            print("BARRIER_RETURNED", flush=True)
+        except DeadlineExceeded as err:
+            print("DEADLINE_%.3f %s" % (time.monotonic() - t0, err),
+                  flush=True)
+        open(flag, "w").close()
+    else:
+        t0 = time.monotonic()
+        while not os.path.exists(flag) and time.monotonic() - t0 < 40:
+            time.sleep(0.1)
+        print("PEER_LEFT", flush=True)
+# the never-met barrier is still pending in gloo: leave without teardown
+os._exit(0)
+"""
+
+
+def _barrier_gang(tmp_path, mode, env):
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coordinator = "127.0.0.1:%d" % s.getsockname()[1]
+    s.close()
+    flag = str(tmp_path / "rank0_done")
+    return _run_gang([[sys.executable, "-c", BARRIER_WORKER, coordinator,
+                       str(r), mode, flag] for r in range(2)],
+                     BARRIER_GANG_S, env)
+
+
+def test_init_timeout_bounds_the_rendezvous_alone(tmp_path):
+    """With a 3 s init knob, rank 1 reaches the barrier 8 s after rank 0:
+    the knob bounds only the rendezvous (JAX's ``initialization_timeout``,
+    mxnet_tpu/parallel/kvstore_dist.py:133-135), so rank 0's barrier waits
+    for it and both pass."""
+    outs = _barrier_gang(tmp_path, "late",
+                         {"MXTPU_DIST_INIT_TIMEOUT_S": "3"})
+    for r, (rc, log) in enumerate(outs):
+        assert rc == 0 and "BARRIER_OK_%d" % r in log, log[-4000:]
+    waited = float(outs[0][1].split("BARRIER_OK_0 ")[1].split()[0])
+    assert waited > 3.0, outs[0][1][-4000:]
+
+
+def test_barrier_raises_deadline_exceeded_when_a_peer_never_comes(tmp_path):
+    """With a 2 s barrier knob and a peer that never reaches the barrier,
+    `barrier()` raises `DeadlineExceeded` naming the barrier and its
+    budget, as JAX's does (its :570-588), after about that long."""
+    outs = _barrier_gang(tmp_path, "never",
+                         {"MXTPU_BARRIER_TIMEOUT_S": "2"})
+    (rc0, log0), (rc1, log1) = outs
+    assert rc0 == 0 and "DEADLINE_" in log0, log0[-4000:]
+    assert "kvstore barrier across 2 processes" in log0, log0[-4000:]
+    waited = float(log0.split("DEADLINE_")[1].split()[0])
+    assert 2.0 <= waited < 10.0, log0[-4000:]
+    assert rc1 == 0 and "PEER_LEFT" in log1, log1[-4000:]
 
 
 class _Store:

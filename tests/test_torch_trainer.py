@@ -240,19 +240,29 @@ def test_trainer_sets_up_its_update_once(weights, monkeypatch):
 
 
 def test_trainer_refuses_what_the_port_does_not_have(weights, monkeypatch):
+    """What the port's trainer refuses: gradient compression and ZeRO-1
+    (by argument or by MXTPU_ZERO1), both ROADMAP A6c; parameters the
+    optimizer does not have; a batch of the wrong arity; and, with no
+    card, the default device. (Adam and aux_mode="predict" are ported.)"""
     jnet, _, _ = weights
     np_params = {k: np.asarray(v.data()._data)
                  for k, v in jnet.collect_params().items()}
     st = _port_trainer(np_params)
     net = st._net
-    with pytest.raises(MXNetError, match="sgd"):
-        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "adam", device="cpu")
+    for kwargs in ({"gradient_compression": {"type": "2bit",
+                                             "threshold": 0.5}},
+                   {"shard_optimizer_state": True}):
+        with pytest.raises(MXNetError, match="A6c"):
+            ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
+                           device="cpu", **kwargs)
+    monkeypatch.setenv("MXTPU_ZERO1", "1")
+    with pytest.raises(MXNetError, match="ZeRO-1.*A6c"):
+        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
+                       device="cpu")
+    monkeypatch.delenv("MXTPU_ZERO1")
     with pytest.raises(MXNetError, match="unknown"):
         ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
                        {"beta1": 0.9}, device="cpu")
-    with pytest.raises(MXNetError, match="aux_mode"):
-        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
-                       aux_mode="predict", device="cpu")
     with pytest.raises(MXNetError, match="expects"):
         st.step(torch.zeros(1, 32, 32, 3))
     # the entry point runs on CUDA unless told otherwise: no card, it raises

@@ -1228,6 +1228,7 @@ def train(dev, card):
                      % (mode, lc, disp.get() - d0, 36 * calls, calls,
                         TRAIN_STEPS))
         numerics.drain_flags()
+        first_state = [t.clone() for t in _trainer_state(graph)]
         same = torch.equal(warm["eager"], warm["graph"]) and all(
             torch.equal(a, b) for a, b in zip(_trainer_state(eager),
                                               _trainer_state(graph)))
@@ -1344,7 +1345,13 @@ def train(dev, card):
          eager=runs["eager"],
          stride2_subsample_ms_per_forward=subsample_ms)
     return {"graph_replays": replayed, "graph_capture": counted["graph"],
-            "eager": counted["eager"]}
+            "eager": counted["eager"],
+            # the reference dist_sharded holds its first window to
+            "first_window": {"losses": warm["graph"],
+                             "state": first_state,
+                             "img_s": runs["graph"]["img_s"],
+                             "step_ms": runs["graph"]["step_ms"],
+                             "device_ms": runs["graph"]["device_ms"]}}
 
 
 SHARDED_API = dict(batch=16, img=32, steps=3, tol=1e-5, dropout_steps=32,
@@ -3776,6 +3783,394 @@ def dist_train(dev, card, gluon_img_s):
             for k in ("conv1x1_bn_stats", "fused_sgd_momentum")}
 
 
+# ---------------------------------------------------------------------------
+# phases 25-26: ShardedTrainer across processes
+# ---------------------------------------------------------------------------
+# stated before the first run (PERF.md): at world size 1 every collective
+# is an identity, so the one difference from `train`'s one-card trainer is
+# BatchNorm after a 1x1 conv rebuilding var from E[x^2] = var + mean^2;
+# the first loss within FIRST_RTOL, the 10 steps' losses within LOSS_RTOL
+# and every state tensor within STATE_TOL of max(1, |train's|)
+DIST_SHARDED = dict(first_rtol=1e-3, loss_rtol=2e-2, state_tol=2e-2)
+
+
+class _Collectives:
+    """Counts the trainer's collectives (parallel.mesh's all_reduce_,
+    reduce_scatter_, all_gather_): all calls, and those made while the
+    calling thread's stream was capturing a CUDA graph."""
+
+    NAMES = ("all_reduce_", "reduce_scatter_", "all_gather_")
+
+    def __init__(self):
+        from mxnet_tpu_torch.parallel import data_parallel, mesh
+        self.mods = (mesh, data_parallel)
+        self.calls = {n: 0 for n in self.NAMES}
+        self.captured = {n: 0 for n in self.NAMES}
+        self.saved = {}
+
+    def __enter__(self):
+        for mod in self.mods:
+            for name in self.NAMES:
+                fn = getattr(mod, name)
+                self.saved[(mod, name)] = fn
+                setattr(mod, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def counted(*args, **kwargs):
+            self.calls[name] += 1
+            if args[0].is_cuda and torch.cuda.is_current_stream_capturing():
+                self.captured[name] += 1
+            return fn(*args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def dist_sharded(dev, card, ref):
+    """ResNet-50 v1 as `train` runs it (NHWC, b128 at 224 px, bf16 over
+    fp32 masters, SGD momentum 0.9, from train's seeded weights and batch)
+    through the ShardedTrainer of a process-spanning mesh: after
+    init_distributed() at world size 1 over NCCL, {"dp": 1} over the gang,
+    global-batch BatchNorm, on the CUDA-graph step; first with ZeRO-1 (its
+    gradients reduce-scattered, its weights all-gathered), then
+    replicated (the gradient all-reduce). Gates, each trainer: one graph
+    captured, every collective of a step issued inside the capture (the
+    BatchNorm reductions forward and backward, the loss's pmean, the
+    exchange's), the first window's losses and state against train's
+    one-card trainer within DIST_SHARDED, 36 conv1x1_wgmma_kernel and 1
+    sgd_momentum_kernel launches a step read by the profiler over the
+    replays, and no other conv1x1 kernel. Returns the launches."""
+    import gc
+    import torch.distributed as dist
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.convert import init_resnet_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.gluon.nn import BatchNorm
+    from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel
+    from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+    from mxnet_tpu_torch.resilience import numerics
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_distributed("127.0.0.1:%d" % _free_port(), 1, 0)
+    tol = DIST_SHARDED
+    torch.backends.cudnn.deterministic = True
+    runs, launches = {}, {}
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            fail("dist_sharded: process group %s of %d, want nccl of 1"
+                 % (dist.get_backend(), dist.get_world_size()))
+        net = resnet50_v1(layout="NHWC", device=dev)
+        init_resnet_params(net, seed=0)
+        n_bn = sum(isinstance(m, BatchNorm) for m in net.modules())
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3)
+                             .astype("float32")).to(dev)
+        y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")) \
+            .to(dev)
+        for mode, zero in (("zero1", True), ("replicated", False)):
+            st = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9},
+                                compute_dtype="bfloat16",
+                                shard_optimizer_state=zero)
+            if not (st._dist and st._graph_on and st._mesh.shape ==
+                    {"dp": 1} and bool(st._zero) == zero):
+                fail("dist_sharded %s: trainer over %r, graph %s, %d "
+                     "ZeRO-1 parameters" % (mode, st._mesh, st._graph_on,
+                                           len(st._zero)))
+            numerics.drain_flags()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # the main path, with every launch counter at 0 just before it
+            ops.reset_launch_counts()
+            t = time.perf_counter()
+            with _Collectives() as coll:
+                losses = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu()
+            first_s = time.perf_counter() - t
+            wrappers = ops.launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            calls = data_parallel._WARMUP + 1
+            per_step = {"all_reduce_": 2 * n_bn + 1 + len(st._rep_buckets),
+                        "reduce_scatter_": len(st._zero_buckets),
+                        "all_gather_": len(st._zero_buckets)}
+            if len(st._graphs) != 1 or coll.captured != per_step or \
+                    coll.calls != {k: v * calls for k, v in
+                                   per_step.items()}:
+                fail("dist_sharded %s: %d graphs; collectives %s, inside "
+                     "the capture %s; want one graph and %s a step, every "
+                     "one of the capture's captured"
+                     % (mode, len(st._graphs), coll.calls, coll.captured,
+                        per_step))
+            if wrappers["conv1x1_bn_stats"] != 36 * calls or \
+                    wrappers["fused_sgd_momentum"] != calls:
+                fail("dist_sharded %s: the warm-up and capture launched %s, "
+                     "want %d conv1x1_bn_stats and %d fused_sgd_momentum"
+                     % (mode, wrappers, 36 * calls, calls))
+            state = _trainer_state(st)
+            first_err = abs(float(losses[0]) - float(ref["losses"][0])) / \
+                abs(float(ref["losses"][0]))
+            loss_err = float((losses - ref["losses"]).abs().max()) / \
+                float(ref["losses"].abs().max())
+            state_err = max(float((a.float() - b.float()).abs().max()) /
+                            max(1.0, float(b.float().abs().max()))
+                            for a, b in zip(state, ref["state"]))
+            same = torch.equal(losses, ref["losses"]) and all(
+                torch.equal(a, b) for a, b in zip(state, ref["state"]))
+            if len(state) != len(ref["state"]) or \
+                    first_err > tol["first_rtol"] or \
+                    loss_err > tol["loss_rtol"] or \
+                    state_err > tol["state_tol"]:
+                fail("dist_sharded %s: against train's one-card trainer, "
+                     "first loss %g, losses %g, state %g (tolerances %s)"
+                     % (mode, first_err, loss_err, state_err, tol))
+            guard = numerics.drain_flags()
+            if not torch.isfinite(losses).all() or guard["anomalies"]:
+                fail("dist_sharded %s: losses %s, numerics guard %s"
+                     % (mode, losses.tolist(), guard))
+            # a timed window of replays
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            timed = st.step_many(x, y, n_steps=TRAIN_STEPS).cpu().numpy()
+            wall = time.perf_counter() - t
+            numerics.drain_flags()
+            want = {"conv1x1_bn_stats": 36 * TRAIN_STEPS,
+                    "fused_sgd_momentum": TRAIN_STEPS}
+            replayed = device_launches(
+                lambda: st.step_many(x, y, n_steps=TRAIN_STEPS), 1, want)
+            events = device_events(lambda: st.step_many(x, y, n_steps=1), 1)
+            conv_paths = {k[:90]: c for k, (_, c) in events.items()
+                          if "conv1x1_" in k}
+            if any(replayed[k] != v for k, v in want.items()) or \
+                    replayed["flash_attention"] or replayed["layer_norm"] \
+                    or any("conv1x1_wmma_kernel" in k or
+                           "conv1x1_simt_kernel" in k for k in conv_paths):
+                fail("dist_sharded %s: the profiler saw %s over %d replays "
+                     "(want %s) and conv1x1 kernels %s"
+                     % (mode, replayed, TRAIN_STEPS, want, conv_paths))
+            numerics.drain_flags()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            st.step_many(x, y, n_steps=1).cpu()
+            one_step_ms = (time.perf_counter() - t) * 1e3
+            dev_us = {k: us for k, (us, _) in events.items()}
+            profile = breakdown(dev_us, 1, one_step_ms, top_n=8)
+            profile["device_ms_by_kind"] = by_kind(dev_us, 1)
+            profile["collective_kernels"] = {
+                k[:90]: c for k, (_, c) in events.items()
+                if "nccl" in k.lower() or "Memcpy" in k}
+            runs[mode] = dict(
+                img_s=BATCH * TRAIN_STEPS / wall,
+                step_ms=wall / TRAIN_STEPS * 1e3,
+                device_ms=profile["device_ms"], first_window_s=first_s,
+                first_window_peak_mem_gb=peak_gb,
+                losses_first_window=losses.tolist(),
+                losses_timed=timed.tolist(),
+                against_train=dict(first_loss_rel=first_err,
+                                   losses_rel=loss_err, state_rel=state_err,
+                                   bit_identical=same),
+                collectives_a_step=per_step,
+                collectives_inside_capture=coll.captured,
+                zero1_parameters=len(st._zero),
+                buckets=dict(all_reduce=len(st._rep_buckets),
+                             reduce_scatter=len(st._zero_buckets)),
+                wrapper_launches=wrappers, replay_launches=replayed,
+                profile_one_step=profile)
+            launches[mode] = (wrappers, replayed)
+            del st
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(phase="dist_sharded", card=card, model="ResNet-50 v1, NHWC, "
+         "seeded random weights (train's)", batch=BATCH, image=IMG,
+         dtype="bf16 compute, fp32 master", backend="nccl", world_size=1,
+         mesh={"dp": 1}, steps=TRAIN_STEPS, cudnn_deterministic=True,
+         tolerances=tol, batchnorm_layers=n_bn, zero1=runs["zero1"],
+         replicated=runs["replicated"],
+         train=dict(img_s=ref["img_s"], step_ms=ref["step_ms"],
+                    device_ms=ref["device_ms"]))
+    return {name: {"replays": launches["zero1"][1][name] +
+                   launches["replicated"][1][name],
+                   "capture": launches["zero1"][0][name] +
+                   launches["replicated"][0][name]}
+            for name in ("conv1x1_bn_stats", "fused_sgd_momentum")}
+
+
+DIST_SHARDED_SMALL = dict(ranks=2, timeout_s=600, tol=1e-5, zero1_tol=1e-6)
+
+
+def _sharded_worker():
+    """tests/torch_sharded_worker.py as a module: its nets and data."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import torch_sharded_worker
+    return torch_sharded_worker
+
+
+def _same(a, b):
+    """a and b equal bit for bit (nested dicts and lists of tensors and
+    numbers)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(p, q) for p, q in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def _rel(a, b):
+    """max over the tensors of max |a - b| / max(1, max |b|)."""
+    flat_a, flat_b = [], []
+
+    def walk(x, out):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k], out)
+        else:
+            out.append(x.double())
+    walk(a, flat_a)
+    walk(b, flat_b)
+    if len(flat_a) != len(flat_b):
+        return float("inf")
+    return max(float((p - q).abs().max()) / max(1.0, float(q.abs().max()))
+               for p, q in zip(flat_a, flat_b))
+
+
+def dist_sharded_small(dev, card):
+    """2 ranks on the one card over gloo, eager (MXTPU_CUDA_GRAPH=0),
+    started by tools/launch.py -n 2: tests/torch_sharded_worker.py's
+    narrow NHWC ResNet V1 (BatchNorm) at global batch 16, 32 px, fp32,
+    3 steps each of the global-batch trainer, ZeRO-1 and the 2-bit
+    compressed step; a TrainerCheckpoint saved at 2 ranks. Gates: the
+    ranks bit-identical; the global-batch run within tol of a one-rank
+    run on the whole batch here; ZeRO-1 within zero1_tol of replicated;
+    the compressed run finite and its loss at most 1.25x its first; the
+    checkpoint restored by one rank here continues as the uninterrupted
+    2-rank run (tol); a graph-mode trainer over gloo raised, naming
+    MXTPU_CUDA_GRAPH=0. Returns the ranks' launches."""
+    import shutil
+    import signal
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.convert import init_resnet_params
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.parallel.checkpoint import TrainerCheckpoint
+    w = _sharded_worker()
+    cfg = DIST_SHARDED_SMALL
+    n = cfg["ranks"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="dist_sharded_small")
+    try:
+        with mx.cpu():
+            seeded = w.build_resnet(vision)
+            seeded.initialize()
+        init_resnet_params(seeded, seed=3)
+        weights = {k: v.detach().clone() for k, v in
+                   seeded.state_dict().items()}
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"resnet": weights, "ckpt_dir": os.path.join(tmp, "ck")},
+                   inputs)
+        out = os.path.join(tmp, "out")
+        cmd = [sys.executable, os.path.join(here, "tools", "launch.py"),
+               "-n", str(n), sys.executable,
+               os.path.join(here, "tests", "torch_sharded_worker.py"),
+               "--mode", "chip_small", "--device", "cuda", "--inputs",
+               inputs, "--out", out]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True,
+                                env=dict(os.environ, MXTPU_DIST_BACKEND="gloo",
+                                         MXTPU_CUDA_GRAPH="0"))
+        try:
+            log, _ = proc.communicate(timeout=cfg["timeout_s"])
+        except subprocess.TimeoutExpired:
+            log = b"timed out after %d s" % cfg["timeout_s"]
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        gang_s = time.perf_counter() - t0
+        log = log.decode(errors="replace")
+        if proc.returncode or any("WORKER_%d_OK" % r not in log
+                                  for r in range(n)):
+            fail("dist_sharded_small: the gang failed (rc %s):\n%s"
+                 % (proc.returncode, log[-4000:]))
+        ranks = [torch.load(os.path.join(out, "rank%d.pt" % r))
+                 for r in range(n)]
+        r0 = ranks[0]
+        differ = [k for k in r0 if any(not _same(r[k], r0[k])
+                                       for r in ranks[1:])]
+        # one rank on the whole batch, here, and the checkpoint's restore
+        x, y = w.batch("resnet")
+        os.environ["MXTPU_CUDA_GRAPH"] = "0"
+        try:
+            with mx.gpu(dev.index):
+                one = w._trainer(mx, "resnet", weights, dev)
+                one_losses = [float(one.step(x, y))
+                              for _ in range(w.RESNET["steps"])]
+                restored = w._trainer(mx, "resnet", weights, dev)
+                with TrainerCheckpoint(os.path.join(tmp, "ck")) as ck:
+                    step = ck.restore_latest(restored)
+                resumed = [float(restored.step(x, y)) for _ in range(2)]
+        finally:
+            os.environ.pop("MXTPU_CUDA_GRAPH", None)
+        one_state = w._state(one)
+        errs = dict(
+            global_batch=max(_rel(r0["plain"], one_state), _rel(
+                {"l": torch.tensor(r0["plain_losses"])},
+                {"l": torch.tensor(one_losses)})),
+            zero1=_rel(r0["zero1"], r0["plain"]),
+            checkpoint=_rel({"l": torch.tensor(resumed)},
+                            {"l": torch.tensor(r0["after_save"])}))
+        comp = r0["comp_losses"]
+        if differ or errs["global_batch"] > cfg["tol"] or \
+                errs["zero1"] > cfg["zero1_tol"] or \
+                errs["checkpoint"] > cfg["tol"] or \
+                step != w.RESNET["steps"] or \
+                not (np.isfinite(comp).all() and comp[-1] <= 1.25 * comp[0]) \
+                or "MXTPU_CUDA_GRAPH=0" not in (r0["graph_over_gloo"] or ""):
+            fail("dist_sharded_small: ranks differ in %s; errors %s "
+                 "(tolerances %s); restored step %s; compressed losses %s; "
+                 "graph over gloo: %s" % (differ, errs, cfg, step, comp,
+                                          r0["graph_over_gloo"]))
+        want = {"conv1x1_bn_stats": 6 * w.RESNET["steps"],
+                "fused_sgd_momentum": w.RESNET["steps"]}
+        bad = {tag: r0[tag + "_launches"] for tag in ("plain", "zero1",
+                                                       "comp")
+               if any(r0[tag + "_launches"][k] != v
+                      for k, v in want.items())}
+        if bad:
+            fail("dist_sharded_small: rank 0's launches %s, want %s a run"
+                 % (bad, want))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="dist_sharded_small", card=card, ranks=n,
+         backend="gloo, CUDA tensors (host-staged)", step="eager",
+         launcher="tools/launch.py -n %d" % n,
+         global_batch=w.RESNET["batch"], image=w.RESNET["img"],
+         dtype="fp32", steps=w.RESNET["steps"], gang_s=gang_s,
+         ranks_bit_identical=not differ, errors=errs, tolerances=cfg,
+         losses=dict(plain=r0["plain_losses"], zero1=r0["zero1_losses"],
+                     compressed=comp, one_rank=one_losses,
+                     after_save=r0["after_save"], restored_at_1=resumed),
+         graph_over_gloo=(r0["graph_over_gloo"] or "")[:160],
+         launches_rank0={tag: r0[tag + "_launches"]
+                         for tag in ("plain", "zero1", "comp")})
+    return {k: sum(r[tag + "_launches"][k] for r in ranks
+                   for tag in ("plain", "zero1", "comp"))
+            for k in ("conv1x1_bn_stats", "fused_sgd_momentum")}
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -3890,6 +4285,9 @@ def main():
     # phases 23-24: the distributed KVStore and the fused step
     small_dist_launches = dist_small(dev, card)
     dist_launches = dist_train(dev, card, gluon_img_s)
+    # phases 25-26: ShardedTrainer across processes
+    sharded_launches = dist_sharded(dev, card, train_launches["first_window"])
+    sharded_small_launches = dist_sharded_small(dev, card)
     by_path = {name: {"train": train_launches["graph_replays"][name],
                       "train_graph_capture":
                           train_launches["graph_capture"][name],
@@ -3904,7 +4302,11 @@ def main():
                       "hybrid_train": hybrid_launches[name],
                       "mnist": mnist_launches[name],
                       "dist_small": small_dist_launches[name],
-                      "dist_train": dist_launches[name]}
+                      "dist_train": dist_launches[name],
+                      "dist_sharded": sharded_launches[name]["replays"],
+                      "dist_sharded_capture":
+                          sharded_launches[name]["capture"],
+                      "dist_sharded_small": sharded_small_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
                              "nd_gpt": gpt_nd["launches"]["layer_norm"],

@@ -182,7 +182,9 @@ def conv1x1_bn_nhwc(x, weight, bias=None, stride=1):
     bias), and the batch statistics of its output, through
     `Conv1x1BNStats`. Stride 2 subsamples x first, which is a copy. The
     bias joins after the kernel, in y's dtype: y + b, mean + b, var as
-    is. Returns (y (N, H', W', Cout), mean, var)."""
+    is. Returns (y (N, H', W', Cout), mean, var): this process's
+    statistics, which a training BatchNorm inside a process-spanning
+    trainer step reduces across ranks (`ops.nn.global_batch_stats`)."""
     if stride != 1:
         x = x[:, ::stride, ::stride, :]
     n, h, w_, cin = x.shape

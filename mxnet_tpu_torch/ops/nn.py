@@ -19,6 +19,8 @@ IdentityAttachKLSparseReg. The fused `RNN` op is not ported yet.
 """
 from __future__ import annotations
 
+from contextlib import contextmanager
+
 import torch
 import torch.nn.functional as F
 
@@ -27,7 +29,8 @@ from .layer_norm import layer_norm
 from .registry import register
 
 __all__ = ["LayerNormFunction", "activation", "batch_norm", "bn_axis",
-           "convolution", "fully_connected", "is_channels_last", "pooling"]
+           "convolution", "fully_connected", "global_batch_stats",
+           "is_channels_last", "pooling"]
 
 
 def is_channels_last(layout):
@@ -145,13 +148,40 @@ def batch_norm(x, gamma, beta, moving_mean, moving_var, eps=1e-3,
     `stats` = (mean, var) hands in ones already computed (by
     `ops.conv1x1_bn_stats` in the producer's epilogue). The moving
     statistics become momentum * old + (1 - momentum) * batch (MXNet's
-    momentum: not PyTorch's complement, and the biased variance). The
+    momentum: not PyTorch's complement, and the biased variance); inside
+    `global_batch_stats` the batch is every rank's. The
     scale and shift fold into one per-channel pair, computed in the
     statistics' dtype and applied in x's dtype."""
     y, _, _, new_mm, new_mv = _batch_norm(
         x, gamma, beta, moving_mean, moving_var, eps, momentum, fix_gamma,
         use_global_stats, axis, training, stats)
     return y, new_mm, new_mv
+
+
+# the cross-rank mean of training BatchNorm's statistics, while a trainer
+# step over a data-parallel axis runs (`global_batch_stats`)
+_STATS_MEAN = []
+
+
+@contextmanager
+def global_batch_stats(mean_over_ranks):
+    """Within the scope, a training BatchNorm normalises with statistics
+    of the global batch: its per-channel mean and E[x^2] (each rank's,
+    over equal shards) go through `mean_over_ranks` (a differentiable
+    mean over the ranks of a data-parallel axis, `parallel.mesh.pmean`)
+    before var = max(E[x^2] - mean^2, 0); the moving statistics follow
+    the global ones. Where a 1x1 convolution's kernel handed in its
+    (mean, var), E[x^2] is var + mean^2, rebuilt, reduced and subtracted
+    again in fp64 (in fp32 the subtraction would cancel var's digits where
+    mean^2 >> var). The scope is the process's, not
+    a thread's: a rematerialized forward, which runs in the backward,
+    sees it too. Outside any scope each process keeps its own
+    statistics."""
+    _STATS_MEAN.append(mean_over_ranks)
+    try:
+        yield
+    finally:
+        _STATS_MEAN.pop()
 
 
 def _batch_norm(x, gamma, beta, moving_mean, moving_var, eps, momentum,
@@ -161,14 +191,25 @@ def _batch_norm(x, gamma, beta, moving_mean, moving_var, eps, momentum,
     ax = axis % x.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if training and not use_global_stats:
+        across = _STATS_MEAN[-1] if _STATS_MEAN else None
         if stats is None:
             red = tuple(i for i in range(x.dim()) if i != ax)
             xf = x if x.dtype == torch.float64 else x.float()
             mean = xf.mean(dim=red)
-            var = torch.clamp((xf * xf).mean(dim=red) - mean * mean,
-                              min=0.0)
+            sq = (xf * xf).mean(dim=red)
+            if across is not None:
+                mean, sq = across(torch.stack([mean, sq])).unbind(0)
+            var = torch.clamp(sq - mean * mean, min=0.0)
         else:
             mean, var = stats
+            if across is not None:
+                # E[x^2] rebuilt and reduced in fp64: var + mean^2 - mean^2
+                # in fp32 would cancel away var's digits where mean^2 >> var
+                m64 = mean.double()
+                m64, sq = across(torch.stack(
+                    [m64, var.double() + m64 * m64])).unbind(0)
+                var = torch.clamp(sq - m64 * m64, min=0.0).to(var.dtype)
+                mean = m64.to(mean.dtype)
         with torch.no_grad():
             new_mm = momentum * moving_mean + (1 - momentum) * mean
             new_mv = momentum * moving_var + (1 - momentum) * var

@@ -1,7 +1,8 @@
-"""`ShardedTrainer` on one device (counterpart of
-mxnet_tpu/parallel/data_parallel.py: the optimizers :52-93,
-`ShardedTrainer` :115, the step body :343-399, `step_many` :503,
-`prefetched` :560, `fit` :579, `step` :722, `params` :766,
+"""`ShardedTrainer`, on one device or over a mesh that spans a gang of
+processes (counterpart of mxnet_tpu/parallel/data_parallel.py: the
+optimizers :52-93, `ShardedTrainer` :115, the step body :343-399,
+`step_many` :503, `_stage_inputs` :547, `prefetched` :560, `fit` :579,
+`_build_step_compressed` :603, `step` :722, `params` :766,
 `copy_params_to_net` :773).
 
 A step is the JAX step body in PyTorch: forward through the
@@ -56,18 +57,64 @@ floating data inputs are cast to bf16 inside the step; labels, biases,
 BatchNorm gains, shifts and statistics, the optimizer state and the
 gradients stay fp32.
 
-Meshes: the trainer runs on one device, a mesh of one (``{"dp": 1}`` by
-default). `param_rules` and `input_specs` are checked against the mesh's
-axes and change no number there. A mesh of several devices, gradient
-compression and ZeRO-1 (`shard_optimizer_state`, ``MXTPU_ZERO1``) raise:
-they are ROADMAP A6c.
+Meshes: without a process group the trainer runs on one device, a mesh
+of one (``{"dp": 1}`` by default). Inside one (`kvstore_dist.
+init_distributed`, one process a card as ``tools/launch.py -n N``
+starts them) the default mesh is ``{"dp": N}`` over the gang's ranks
+(`mesh.make_mesh`), and the step is one program on every rank:
+
+- every rank is given the global batch and keeps its block along the
+  batch axis (or as `input_specs` split it), as JAX's device_put does;
+- in training each BatchNorm normalises with the global batch's
+  statistics (`ops.nn.global_batch_stats`: per-channel mean and E[x^2]
+  pmean'd over dp, the 1x1-conv kernel's epilogue statistics included;
+  the backward through the differentiable `mesh.pmean`), as GSPMD
+  computes them over the sharded batch in JAX; the moving statistics
+  follow the global ones;
+- the loss is the dp mean; the gradients are averaged over dp inside the
+  step, bucket by bucket (`parallel.bucketing`, ``MXTPU_BUCKET_MB``):
+  one all-reduce per bucket;
+- ZeRO-1 (`shard_optimizer_state`, default ``MXTPU_ZERO1`` unless
+  compressing; arXiv:2004.13336, JAX :132-138, :161-183, :401-433): the
+  optimizer state of a replicated parameter whose rows divide over dp
+  lives as this rank's block of rows; its gradients are reduce-scattered
+  (each bucket laid out as n chunks, chunk r holding block r of every
+  key), the blocks updated (SGD: still ONE kernel launch, the plan's
+  entries being the blocks, contiguous views of the weights), and the
+  weights all-gathered; `opt_state`/`momentum` all-gather it whole;
+- on the card the step stays ONE CUDA graph replay with the NCCL
+  collectives captured inside it. gloo's cannot be captured: a
+  graph-mode trainer over a gloo group raises, naming
+  ``MXTPU_CUDA_GRAPH=0`` (`refuse_capture_over`);
+- dropout: each rank folds its index into its device's generator (JAX
+  folds ``axis_index`` into the key, :624-627).
+
+`param_rules` and `input_specs` are checked against the mesh's axes; one
+that shards over an axis other than dp of size > 1 (tensor or sequence
+parallelism, 'tp'/'sp') raises, naming ROADMAP A6d. One process driving
+several cards is not ported (`Mesh.device` raises, naming
+tools/launch.py).
+
+The compressed step (``gradient_compression={"type": "2bit",
+"threshold": t}``, over `mesh.shard_map_compat`): each rank quantizes
+its gradients to 2-bit codes with its error-feedback residuals, only the
+packed words are all-gathered (a bucket of words a collective), and
+every rank dequantizes the ranks' words, sums them in rank order and
+divides by n_dp; BatchNorm keeps each rank's own statistics and the
+moving statistics are pmean'd (JAX's shard_map semantics); the update is
+replicated; the guard over the reconstructed gradients keeps the
+residuals too; `step_many` raises. At one process it round-trips every
+gradient through the quantizer, as JAX's dp=1 shard_map does.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import re
+import time
 
+import numpy as np
 import torch
 from torch.func import functional_call
 from torch.utils import checkpoint as _ckpt
@@ -79,15 +126,21 @@ from ..context import resolve_device
 from ..gluon.block import collect_params
 from ..gluon.nn.basic_layers import Dropout
 from ..ndarray import NDArray
+from ..gradient_compression import dequantize_2bit, quantize_2bit
 from ..ops import SGDMomentumPlan
+from ..ops.nn import global_batch_stats
 from ..resilience import numerics as _num
-from .fused_step import zero1_enabled
+from .bucketing import GradBucketer
+from .fused_step import (ZERO1_ALLGATHER_SECONDS, ZERO1_SHARD_PARAMS,
+                         zero1_enabled)
 from .fused_update import STEP_DISPATCHES
-from .mesh import Mesh, PartitionSpec, current_mesh, make_mesh
+from .mesh import (Mesh, PartitionSpec, _gang, all_gather_, all_reduce_,
+                   current_mesh, local_block, make_mesh, pmean,
+                   reduce_scatter_, shard_map_compat)
 from .prefetch import DevicePrefetcher, to_device
 
-__all__ = ["ShardedTrainer", "adam_init", "adam_update", "sgd_init",
-           "sgd_update"]
+__all__ = ["ShardedTrainer", "adam_init", "adam_update",
+           "refuse_capture_over", "sgd_init", "sgd_update"]
 
 
 # -- the optimizers, as functions on dicts of tensors (JAX :52-93) ----------
@@ -244,6 +297,53 @@ def _assign(dsts, srcs, ok):
         d.copy_(s if ok is None else torch.where(ok, s, d))
 
 
+def _row_block(t, index, n):
+    """Block `index` of `n` equal blocks of rows of contiguous `t` (a
+    contiguous view)."""
+    k = t.shape[0] // n
+    return t[index * k:(index + 1) * k]
+
+
+def _fold_rank(gen, index):
+    """Fold a rank's index into `gen`: a draw from it (the same on every
+    rank of an equally seeded gang) and the index seed it anew."""
+    base = int(torch.randint(0, 1 << 62, (1,), generator=gen,
+                             device=gen.device).item())
+    gen.manual_seed((base * 1000003 + index) % (1 << 63))
+
+
+def refuse_capture_over(mesh, axis):
+    """Raise when the collectives over `mesh`'s `axis` are gloo's, which a
+    CUDA graph cannot capture (they round-trip through the host): a
+    graph-mode trainer there names ``MXTPU_CUDA_GRAPH=0`` instead of
+    turning eager on its own."""
+    import torch.distributed as dist
+    group = mesh.group(axis)
+    if group is not None and dist.get_backend(group) == "gloo":
+        raise MXNetError(
+            "ShardedTrainer: a CUDA-graph step cannot capture gloo's "
+            "collectives (host round trips); over a gloo group set "
+            "MXTPU_CUDA_GRAPH=0 for the eager step, or use nccl")
+
+
+class _ZeroBucket:
+    """A fusion bucket of ZeRO-1 gradients laid out for reduce-scatter:
+    the flat is `n` chunks, chunk r holding block r of every key's rows
+    in bucket order, so rank r receives its blocks as one contiguous
+    chunk (`offsets`/`sizes` within it)."""
+
+    __slots__ = ("keys", "sizes", "offsets", "chunk")
+
+    def __init__(self, bucket, n):
+        self.keys = list(bucket.keys)
+        self.sizes = [s // n for s in bucket.sizes]
+        self.offsets, off = [], 0
+        for size in self.sizes:
+            self.offsets.append(off)
+            off += size
+        self.chunk = off
+
+
 # eager steps on a side stream before a capture (cuDNN's and cuBLAS's
 # handles, the allocator's pools and the kernels' one-time set-up)
 _WARMUP = 2
@@ -259,7 +359,8 @@ class _Captured:
 
 
 class ShardedTrainer:
-    """One-device trainer of a port `HybridBlock` under a loss, with JAX's
+    """Trainer of a port `HybridBlock` under a loss, on one device or over
+    a process-spanning data-parallel mesh (module note), with JAX's
     arguments in JAX's order (and the port's `device`).
 
     ``loss(outputs, *labels)`` returns per-sample losses (None: the net's
@@ -276,14 +377,28 @@ class ShardedTrainer:
                  aux_mode="train", compute_dtype=None,
                  gradient_compression=None, shard_optimizer_state=None,
                  remat=False, input_specs=None, device=None):
-        if gradient_compression is not None:
-            raise MXNetError("ShardedTrainer: gradient_compression is not "
-                             "ported yet (ROADMAP A6c)")
         if shard_optimizer_state is None:
-            shard_optimizer_state = zero1_enabled()    # MXTPU_ZERO1
-        if shard_optimizer_state:
-            raise MXNetError("ShardedTrainer: shard_optimizer_state (ZeRO-1, "
-                             "MXTPU_ZERO1) is not ported yet (ROADMAP A6c)")
+            # MXTPU_ZERO1, except under compression, whose step keeps
+            # replicated state (an env default never becomes an error)
+            shard_optimizer_state = zero1_enabled() and \
+                gradient_compression is None
+        self._gc = None
+        if gradient_compression is not None:
+            gc = dict(gradient_compression)
+            if gc.get("type", "2bit") != "2bit":
+                raise MXNetError("unsupported gradient compression type %r"
+                                 % gc.get("type"))
+            if param_rules:
+                raise MXNetError("gradient_compression requires a pure "
+                                 "data-parallel mesh (no param_rules)")
+            if shard_optimizer_state:
+                raise MXNetError(
+                    "shard_optimizer_state is not supported with "
+                    "gradient_compression (the compressed step keeps "
+                    "replicated optimizer state around its per-rank "
+                    "residual exchange)")
+            self._gc = {"threshold": float(gc.get("threshold", 0.5))}
+        self._shard_opt = bool(shard_optimizer_state)
         if aux_mode not in ("train", "predict"):
             raise MXNetError("aux_mode must be 'train' or 'predict', got %r"
                              % (aux_mode,))
@@ -308,16 +423,18 @@ class ShardedTrainer:
             raise MXNetError("compute_dtype must name a floating dtype")
         self._cd = compute_dtype
 
-        # the mesh: given, the use_mesh scope's, or one device
+        # the mesh: given, the use_mesh scope's, the gang's ranks on 'dp'
+        # inside a process group, or one device
         if mesh is None:
             mesh = current_mesh()
         if mesh is None:
-            mesh = make_mesh({"dp": 1}, devices=[resolve_device(device)])
+            mesh = make_mesh() if _gang() is not None else \
+                make_mesh({"dp": 1}, devices=[resolve_device(device)])
         if not isinstance(mesh, Mesh):
             raise MXNetError("mesh must be a parallel.mesh.Mesh, got %r"
                              % (mesh,))
         self._mesh = mesh
-        self._dev = resolve_device(mesh.device)     # raises past one device
+        self._dev = resolve_device(mesh.device)     # this rank's device
         if device is not None and resolve_device(device) != self._dev:
             raise MXNetError("device %s is not the mesh's device %s"
                              % (device, self._dev))
@@ -336,6 +453,10 @@ class ShardedTrainer:
                                  "inputs %s" % (name, names))
             self._input_specs[name] = mesh.check_spec(
                 spec, "input_specs[%r]" % (name,))
+        self._dp = self._dp_axis_name()
+        self._n_dp = mesh.shape[self._dp]
+        self._dist = mesh.spans_processes
+        self._refuse_other_axes()
         self._train = aux_mode == "train"
         self._remat = bool(remat)
         self._remat_ctx = _remat_context(remat) if remat else None
@@ -353,21 +474,50 @@ class ShardedTrainer:
                         if p in params}
         self._aux = {n: buffers[p].detach().to(self._dev).clone()
                      for n, p in paths.items() if p in buffers}
+        # ZeRO-1: the optimizer state of a replicated parameter whose rows
+        # divide over dp lives as this rank's block of rows (JAX :401-433)
+        n = self._n_dp
+        self._zero = [k for k, v in self._params.items()
+                      if self._shard_opt and
+                      self._spec_for(k) == PartitionSpec() and
+                      v.dim() >= 1 and v.shape[0] % n == 0 and
+                      v.shape[0] >= n]
+        if self._shard_opt:
+            ZERO1_SHARD_PARAMS.set(len(self._zero))
+        zero = self._zero_set = set(self._zero)
+        # what the update writes: a parameter, or its block of rows
+        self._upd = {k: (_row_block(v, self._mesh.axis_index(self._dp), n)
+                         if k in zero else v)
+                     for k, v in self._params.items()}
         if optimizer == "sgd":
             # momenta exist at momentum 0 too: m' = g there, the same update
-            self._opt_state = {n: torch.zeros_like(v, dtype=torch.float32)
-                               for n, v in self._params.items()}
-            # the update of these tensors, set up once: only gradients change
-            self._plan = SGDMomentumPlan(self._params.values(),
+            self._opt_state = {k: torch.zeros_like(v, dtype=torch.float32)
+                               for k, v in self._upd.items()}
+            # the update of these tensors, set up once: only gradients
+            # change. Under ZeRO-1 the plan's entries are the blocks
+            self._plan = SGDMomentumPlan(self._upd.values(),
                                          self._opt_state.values())
         else:
-            self._opt_state = adam_init(self._params)
+            self._opt_state = adam_init(self._upd)
         self._graph_on = self._dev.type == "cuda" and \
             getenv("MXTPU_CUDA_GRAPH", True)
+        if self._graph_on and self._dist:
+            refuse_capture_over(mesh, self._dp)
         self._graphs = {}
         # one memory pool for every graph of this trainer (module note)
         self._pool = torch.cuda.graph_pool_handle() if self._graph_on \
             else None
+        self._plan_exchange()
+        if self._gc is not None:
+            # this rank's error-feedback residuals (its stream's slice of
+            # JAX's (n_dp, ...) bank; JAX :286-294)
+            self._gc_residuals = {k: torch.zeros_like(v) for k, v in
+                                  self._params.items()}
+        if self._dist and self._needs_rng:
+            # each rank draws its own stream (JAX folds axis_index into
+            # the key, :624-627)
+            _fold_rank(_random.generator(self._dev),
+                       self._mesh.axis_index(self._dp))
         self._step_count = 0
 
     # -- layouts on the mesh ------------------------------------------------
@@ -397,6 +547,24 @@ class ShardedTrainer:
         ax = self._batch_axis_for(ndim)
         return PartitionSpec(*([None] * ax + [self._dp_axis_name()]))
 
+    def _refuse_other_axes(self):
+        """A `param_rules` or `input_specs` entry that shards over an axis
+        other than dp of size > 1 is tensor or sequence sharding, which is
+        not ported (ROADMAP A6d)."""
+        entries = [("param_rules %r" % (p.pattern,), spec)
+                   for p, spec in self._param_rules] + \
+            [("input_specs[%r]" % (n,), spec)
+             for n, spec in self._input_specs.items()]
+        for what, spec in entries:
+            for axis in spec.axes():
+                if axis != self._dp and self._mesh.shape[axis] > 1:
+                    raise MXNetError(
+                        "ShardedTrainer: %s shards over %r (size %d): "
+                        "tensor and sequence sharding are not ported "
+                        "(ROADMAP A6d); the port shards the batch over %r "
+                        "only" % (what, axis, self._mesh.shape[axis],
+                                  self._dp))
+
     def _check_layout(self, name, x):
         """Each dimension an input spec splits must divide by the mesh
         axes it is split over (JAX's sharding rule)."""
@@ -410,14 +578,46 @@ class ShardedTrainer:
                                  "%d ways" % (name, tuple(x.shape), dim,
                                               ways))
 
+    def _plan_exchange(self):
+        """The gradient exchange's fusion buckets (`parallel.bucketing`,
+        ``MXTPU_BUCKET_MB``), planned once over the parameters in their
+        order: the replicated parameters' (all-reduced) and, under
+        ZeRO-1, the sharded ones' (reduce-scattered, `_ZeroBucket`). The
+        compressed step's words are planned at its first step."""
+        self._rep_buckets, self._zero_buckets = [], []
+        self._word_buckets = None
+        if not self._dist:
+            return
+        bucketer = GradBucketer()
+
+        def plan(keys):
+            items = tuple((k, tuple(self._params[k].shape), torch.float32,
+                           -pos, False) for pos, k in enumerate(keys))
+            return bucketer.plan(items) if items else []
+        self._rep_buckets = plan([k for k in self._params
+                                  if k not in self._zero_set])
+        self._zero_buckets = [_ZeroBucket(b, self._n_dp)
+                              for b in plan(self._zero)]
+
     # -- the step body --------------------------------------------------------
     def _stage(self, batch_and_labels):
+        """The step's inputs on this rank's device: every rank is given
+        the global batch and keeps its block along the batch axis (or as
+        `input_specs` split it), as JAX's device_put places it."""
         names = self._data_names + self._label_names
         if len(batch_and_labels) != len(names):
             raise MXNetError("step expects %s" % (names,))
-        inputs = [to_device(x, self._dev) for x in batch_and_labels]
-        for name, x in zip(names, inputs):
+        inputs = []
+        for name, x in zip(names, batch_and_labels):
+            if isinstance(x, NDArray):
+                x = x._data
+            elif not isinstance(x, torch.Tensor):
+                x = torch.as_tensor(np.asarray(x))
             self._check_layout(name, x)
+            if self._dist:
+                x = local_block(self._mesh, self._input_spec(name, x.dim()),
+                                x)
+            inputs.append(to_device(x, self._dev).contiguous())
         return inputs
 
     def _forward(self, leaves, aux, data, labels):
@@ -480,14 +680,22 @@ class ShardedTrainer:
         return loss
 
     def _loss_and_grads(self, inputs, aux):
-        """Forward and backward: (loss, gradients in `_params` order)."""
+        """Forward and backward on this rank's block: (local loss,
+        gradients in `_params` order). Over a process-spanning dp axis in
+        training, BatchNorm normalises with the global batch's statistics
+        (`ops.nn.global_batch_stats`), except in the compressed step,
+        whose BatchNorm keeps each rank's own (JAX's shard_map)."""
         nd = len(self._data_names)
         data, labels = inputs[:nd], inputs[nd:]
         cd = self._cd
         if cd is not None:
             data = [x.to(cd) if x.is_floating_point() else x for x in data]
         forward = self._remat_forward if self._remat else self._forward
-        with autograd.record(train_mode=self._train):
+        scope = global_batch_stats(functools.partial(
+            pmean, axis_name=self._dp, mesh=self._mesh)) \
+            if self._dist and self._train and self._gc is None \
+            else contextlib.nullcontext()
+        with scope, autograd.record(train_mode=self._train):
             leaves = [p.detach().requires_grad_(True)
                       for p in self._params.values()]
             loss = forward(leaves, aux, data, labels)
@@ -496,6 +704,50 @@ class ShardedTrainer:
                  for p, g in zip(leaves, grads)]
         return loss.detach(), grads
 
+    def _exchange(self, grads):
+        """The gradients' mean over dp, bucket by bucket: a replicated
+        parameter's whole (all-reduce), a ZeRO-1 parameter's block of
+        rows, this rank's (reduce-scatter of the bucket's chunked
+        layout). Returns them in `_params` order."""
+        group, n = self._mesh.group(self._dp), self._n_dp
+        g = dict(zip(self._params, grads))
+        out = {}
+        for b in self._rep_buckets:
+            flat = all_reduce_(b.pack([g[k] for k in b.keys]), group)
+            flat.div_(n)
+            out.update(zip(b.keys, b.unpack(flat)))
+        for zb in self._zero_buckets:
+            whole = torch.cat([g[k].reshape(n, s) for k, s in
+                               zip(zb.keys, zb.sizes)], dim=1).reshape(-1)
+            chunk = reduce_scatter_(whole.new_empty(zb.chunk), whole, group)
+            chunk.div_(n)
+            for k, off, size in zip(zb.keys, zb.offsets, zb.sizes):
+                out[k] = chunk[off:off + size].view(self._upd[k].shape)
+        return [out[k] for k in self._params]
+
+    def _gather_weights(self):
+        """ZeRO-1: every rank's updated blocks of rows, all-gathered into
+        the whole parameters."""
+        group, n = self._mesh.group(self._dp), self._n_dp
+        for zb in self._zero_buckets:
+            mine = torch.cat([self._upd[k].reshape(-1) for k in zb.keys])
+            whole = all_gather_(mine.new_empty(n * zb.chunk), mine, group)
+            rows = whole.view(n, zb.chunk)
+            for k, off, size in zip(zb.keys, zb.offsets, zb.sizes):
+                self._params[k].view(n, size).copy_(rows[:, off:off + size])
+
+    def _verdict(self, grads):
+        """The numerics guard's verdict over the exchanged gradients: a
+        0-d device bool, the same on every rank (under ZeRO-1 each rank
+        sees its blocks only, so the ranks' counts of non-finite verdicts
+        are summed)."""
+        ok = _all_finite(grads)
+        if self._dist and self._zero:
+            bad = all_reduce_((~ok).to(torch.float32).reshape(1),
+                              self._mesh.group(self._dp))
+            ok = bad[0] == 0
+        return ok
+
     def _update(self, grads, ok):
         hp = self._hp
         if self._optimizer == "sgd":
@@ -503,11 +755,10 @@ class ShardedTrainer:
                        ok)
             return
         state = self._opt_state
-        new_p, new_s = adam_update(self._params, dict(zip(self._params,
-                                                          grads)),
+        new_p, new_s = adam_update(self._upd, dict(zip(self._upd, grads)),
                                    state, **hp)
-        keys = list(self._params)
-        _assign([self._params[k] for k in keys] +
+        keys = list(self._upd)
+        _assign([self._upd[k] for k in keys] +
                 [state["m"][k] for k in keys] +
                 [state["v"][k] for k in keys] + [state["t"]],
                 [new_p[k] for k in keys] + [new_s["m"][k] for k in keys] +
@@ -516,15 +767,85 @@ class ShardedTrainer:
     def _step_body(self, inputs, guard):
         """One step on `inputs`, in place: (loss, verdict). Guarded, a step
         whose gradients are not all finite writes nothing (JAX :387-394);
-        unguarded, the verdict is None."""
+        unguarded, the verdict is None. Across processes the loss is the
+        dp mean and the gradients are exchanged before the update."""
         aux = {n: v.clone() for n, v in self._aux.items()} if guard \
             else self._aux
-        loss, grads = self._loss_and_grads(inputs, aux)
-        ok = _all_finite(grads) if guard else None
+        if self._gc is not None:
+            loss, grads, residuals = self._compressed_grads(inputs, aux)
+        else:
+            loss, grads = self._loss_and_grads(inputs, aux)
+            if self._dist:
+                loss = pmean(loss, self._dp, self._mesh)
+                grads = self._exchange(grads)
+        ok = self._verdict(grads) if guard else None
         self._update(grads, ok)
+        if self._dist and self._zero:
+            self._gather_weights()
+        if self._gc is not None:
+            _assign(self._gc_residuals.values(), residuals, ok)
         if guard:
             _assign(self._aux.values(), aux.values(), ok)
         return loss, ok
+
+    # -- the compressed step (JAX _build_step_compressed :603-720) -----------
+    def _compressed_grads(self, inputs, aux):
+        """The compressed exchange over `shard_map_compat` on dp: each rank
+        2-bit quantizes its gradients with its error-feedback residuals,
+        the packed words alone are all-gathered (one collective a fusion
+        bucket of words), and each rank dequantizes every rank's words,
+        sums them in rank order and divides by n_dp. BatchNorm keeps each
+        rank's own statistics and the moving statistics are pmean'd.
+        Returns (loss, gradients, the new residuals) without writing the
+        residuals (the guard decides)."""
+        mesh, dp, n = self._mesh, self._dp, self._n_dp
+        thr = self._gc["threshold"]
+        rep = PartitionSpec()
+
+        def shard_grads(inputs, aux, residuals):
+            loss, grads = self._loss_and_grads(inputs, aux)
+            words, new_res = [], []
+            for g, r in zip(grads, residuals):
+                w, nr = quantize_2bit(g, r, thr)
+                words.append(w)
+                new_res.append(nr)
+            gathered = self._gather_words(words)
+            out = []
+            for g, parts in zip(grads, gathered):
+                tot = dequantize_2bit(parts[0], g.shape, thr, g.dtype)
+                for p in parts[1:]:
+                    tot = tot + dequantize_2bit(p, g.shape, thr, g.dtype)
+                out.append(tot / n)
+            loss = pmean(loss, dp)
+            if self._train:
+                with torch.no_grad():
+                    for v in aux.values():
+                        v.copy_(pmean(v, dp))
+            return loss, out, new_res
+
+        # the inputs are this rank's blocks already, the residuals its own
+        return shard_map_compat(shard_grads, mesh, (rep, rep, rep),
+                                (rep, rep, rep))(
+            inputs, aux, list(self._gc_residuals.values()))
+
+    def _gather_words(self, words):
+        """Every rank's int32 words of each gradient, in rank order:
+        [per key, [per rank, words]]."""
+        if self._word_buckets is None:
+            items = tuple((k, (int(w.numel()),), torch.int32, -pos, False)
+                          for pos, (k, w) in enumerate(zip(self._params,
+                                                           words)))
+            self._word_buckets = GradBucketer().plan(items)
+        group, n = self._mesh.group(self._dp), self._n_dp
+        w = dict(zip(self._params, words))
+        out = {}
+        for b in self._word_buckets:
+            mine = b.pack([w[k] for k in b.keys])
+            whole = all_gather_(mine.new_empty(n * b.total), mine, group)
+            ranks = [b.unpack(r) for r in whole.view(n, b.total).unbind(0)]
+            for j, k in enumerate(b.keys):
+                out[k] = [ranks[r][j] for r in range(n)]
+        return [out[k] for k in self._params]
 
     # -- the captured step ----------------------------------------------------
     def _state_tensors(self):
@@ -533,7 +854,9 @@ class ShardedTrainer:
             opt = [*opt["m"].values(), *opt["v"].values(), opt["t"]]
         else:
             opt = list(opt.values())
-        return [*self._params.values(), *self._aux.values(), *opt]
+        res = list(self._gc_residuals.values()) if self._gc is not None \
+            else []
+        return [*self._params.values(), *self._aux.values(), *opt, *res]
 
     def _capture(self, inputs, guard):
         """Warm the step up eagerly on a side stream, put the trainer's
@@ -613,6 +936,9 @@ class ShardedTrainer:
         steps run unguarded; with the guard on, one verdict for the window
         (every loss and every final parameter finite) is recorded as
         where="window", as the JAX `step_many` does (:483-494)."""
+        if self._gc is not None:
+            raise MXNetError("step_many: not supported with gradient "
+                             "compression; call step() per batch")
         if int(unroll) < 1:
             raise MXNetError("step_many: unroll must be >= 1")
         inputs = self._stage(batch_and_labels)
@@ -688,19 +1014,110 @@ class ShardedTrainer:
 
     @property
     def momentum(self):
-        """Copies of SGD's momenta, by parameter name."""
+        """Copies of SGD's momenta, by parameter name, whole (under
+        ZeRO-1 across processes, all-gathered: every rank calls it)."""
         if self._optimizer != "sgd":
             raise MXNetError("momentum is SGD's state; see opt_state")
-        return {k: v.clone() for k, v in self._opt_state.items()}
+        return self._whole_opt_state()
 
     @property
     def opt_state(self):
-        """Copies of the optimizer state: SGD's momenta by name, or Adam's
-        {"m": ..., "v": ..., "t": int32 step count}."""
-        def copy(s):
-            return {k: copy(v) for k, v in s.items()} \
-                if isinstance(s, dict) else s.clone()
-        return copy(self._opt_state)
+        """Copies of the optimizer state, whole: SGD's momenta by name, or
+        Adam's {"m": ..., "v": ..., "t": int32 step count} (under ZeRO-1
+        across processes, all-gathered: every rank calls it)."""
+        return self._whole_opt_state()
+
+    def _whole(self, k, t):
+        """A copy of optimizer-state tensor `t` of parameter `k`, whole:
+        a ZeRO-1 block of rows all-gathered over dp."""
+        if not (self._dist and k in self._zero_set):
+            return t.clone()
+        out = t.new_empty(self._params[k].shape)
+        return all_gather_(out, t, self._mesh.group(self._dp))
+
+    def _whole_opt_state(self):
+        t0 = time.perf_counter()
+        st = self._opt_state
+        if self._optimizer == "sgd":
+            out = {k: self._whole(k, v) for k, v in st.items()}
+        else:
+            out = {"m": {k: self._whole(k, v) for k, v in st["m"].items()},
+                   "v": {k: self._whole(k, v) for k, v in st["v"].items()},
+                   "t": st["t"].clone()}
+        if self._dist and self._zero:
+            ZERO1_ALLGATHER_SECONDS.observe(time.perf_counter() - t0)
+        return out
+
+    def _global_state(self):
+        """The whole state on the host, as a checkpoint saves it (a
+        collective across processes): {"params", "aux", "opt_state"
+        (whole, ZeRO-1's blocks gathered), "step", and with compression
+        "gc_residuals" (each parameter's bank of every rank's residual,
+        (n_dp, ...), JAX's layout)}, each tensor by its parameter's block
+        path (``features.0.weight``), which a net rebuilt in another
+        process, or beside others in this one, keeps."""
+        def host(tree):
+            return {self._paths.get(k, k): host(v)
+                    for k, v in tree.items()} \
+                if isinstance(tree, dict) else tree.detach().cpu()
+        state = {"params": host(self._params), "aux": host(self._aux),
+                 "opt_state": host(self._whole_opt_state()),
+                 "step": int(self._step_count)}
+        if self._gc is not None:
+            group, n = self._mesh.group(self._dp), self._n_dp
+            state["gc_residuals"] = host({
+                k: all_gather_(r.new_empty((n,) + tuple(r.shape)), r, group)
+                for k, r in self._gc_residuals.items()})
+        return state
+
+    def _global_shapes(self):
+        """`_global_state`'s structure with shapes for tensors (no
+        collective)."""
+        p = self._paths
+        whole = {p[k]: tuple(v.shape) for k, v in self._params.items()}
+        opt = whole if self._optimizer == "sgd" else \
+            {"m": whole, "v": whole, "t": ()}
+        out = {"params": whole,
+               "aux": {p[k]: tuple(v.shape) for k, v in self._aux.items()},
+               "opt_state": opt, "step": None}
+        if self._gc is not None:
+            out["gc_residuals"] = {k: (self._n_dp,) + s
+                                   for k, s in whole.items()}
+        return out
+
+    def _load_global_state(self, state):
+        """Write a state of `_global_state`'s form into this trainer, in
+        place (the CUDA graphs and the SGD plan hold these tensors): each
+        rank takes its ZeRO-1 blocks and its slice of each residual bank
+        (whose leading axis must be this mesh's n_dp)."""
+        index, n = self._mesh.axis_index(self._dp), self._n_dp
+        p = self._paths
+
+        def put(k, dst, src):
+            src = src.to(dst.device, dst.dtype)
+            if self._dist and k in self._zero_set:
+                src = _row_block(src, index, n)
+            dst.copy_(src)
+        with torch.no_grad():
+            for k, v in self._params.items():
+                v.copy_(state["params"][p[k]].to(v.device, v.dtype))
+            for k, v in self._aux.items():
+                v.copy_(state["aux"][p[k]].to(v.device, v.dtype))
+            opt = state.get("opt_state")
+            if opt:
+                st = self._opt_state
+                if self._optimizer == "sgd":
+                    for k, v in st.items():
+                        put(k, v, opt[p[k]])
+                else:
+                    for part in ("m", "v"):
+                        for k, v in st[part].items():
+                            put(k, v, opt[part][p[k]])
+                    st["t"].copy_(opt["t"].to(st["t"].device))
+            if self._gc is not None and "gc_residuals" in state:
+                for k, r in self._gc_residuals.items():
+                    r.copy_(state["gc_residuals"][p[k]][index].to(r.device))
+        self._step_count = int(state["step"])
 
     def copy_params_to_net(self):
         """Write the trained values back into the net's parameters and

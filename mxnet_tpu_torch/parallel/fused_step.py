@@ -28,7 +28,9 @@ host work between them:
 Launches counted in ``train.step.dispatches`` a step: one per flat at
 ``nproc > 1`` (the collectives) plus one per update group; the copies
 into the flats and the verdict's reductions are not counted. The staged
-path counts the same (one per bucket collective, one per group).
+path counts the same (one per bucket collective, one per group). Under
+ZeRO-1: per group its reduce-scatter, update and all-gather, and the
+verdict's all-reduce.
 
 Bit parity: the flats hold the staged exchange's buckets exactly (same
 plan, same sizes, so the same collective sums the same elements in the
@@ -38,23 +40,52 @@ staged path, which ``MXTPU_FUSED_STEP=0`` selects and which stays the
 oracle. A compressing store, an optimizer other than SGD and Adam, a
 gradient the groups leave over, or ``ignore_stale_grad`` across
 processes takes the staged path (the refusal of a key set is latched).
-ZeRO-1 (``MXTPU_ZERO1=1``) is not ported and raises.
+
+ZeRO-1 (``MXTPU_ZERO1=1``, arXiv:2004.13336; JAX :21-29, :217-239,
+:330-353) at ``nproc > 1`` shards each update group's optimizer state
+over the processes: the group's gradients are packed into one flat,
+padded to a multiple of nproc, and reduce-scattered, so each rank holds
+the sum of its 1/nproc block; the verdict sums the ranks' counts of
+non-finite blocks (one small all-reduce); the rank updates its block of
+the group's packed weights (the fp32 masters in multi-precision) with
+its block of the state, through the same kernel (SGD, one launch over a
+plan of that block) or ``_foreach`` function (Adam), and the updated
+blocks are all-gathered and unpacked into the weights (a bf16 weight
+takes its master's rounding, as the kernel writes it). The state blocks
+are carried between steps and all-gathered into the per-key states only
+at `flush_state` (the `get_states`/`save_states` boundary, and before
+a staged update or a fused step without ZeRO-1; a collective: every
+rank calls it; ``zero1.allgather.seconds``); ``zero1.shard_params``
+counts the sharded parameters. At one process ``MXTPU_ZERO1`` changes
+nothing, as in JAX.
 
 Env knobs: ``MXTPU_FUSED_STEP`` (default 1), ``MXTPU_ZERO1`` (0).
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from .. import optimizer as opt
-from ..base import MXNetError, getenv
+from ..base import getenv
+from ..observability import registry as _obs
 from ..resilience import numerics as _num
 from .bucketing import GradBucketer, finite_all
 from .fused_update import (FUSED_GROUPS, STEP_DISPATCHES, _SUPPORTED,
-                           FusedUpdater)
+                           FusedUpdater, _Entry)
 
-__all__ = ["FusedTrainStep", "eligible", "enabled", "try_step",
-           "zero1_enabled"]
+__all__ = ["FusedTrainStep", "ZERO1_ALLGATHER_SECONDS", "ZERO1_SHARD_PARAMS",
+           "eligible", "enabled", "try_step", "zero1_enabled"]
+
+ZERO1_SHARD_PARAMS = _obs.gauge(
+    "zero1.shard_params",
+    "Parameters whose optimizer state/update is ZeRO-1-sharded over "
+    "the data-parallel axis (0 = replicated state)")
+ZERO1_ALLGATHER_SECONDS = _obs.histogram(
+    "zero1.allgather.seconds",
+    "Wall time all-gathering ZeRO-1-sharded optimizer state into a "
+    "full copy (get_states / checkpoint / staged-fallback boundaries)")
 
 # one flat per dtype when no distributed store plans the layout
 _NO_LIMIT = 1 << 62
@@ -70,12 +101,6 @@ def enabled():
 def zero1_enabled():
     """MXTPU_ZERO1 gate, re-read per call (default off)."""
     return getenv("MXTPU_ZERO1", False)
-
-
-def _refuse_zero1():
-    if zero1_enabled():
-        raise MXNetError("MXTPU_ZERO1=1: ZeRO-1 sharding of the optimizer "
-                         "state is not ported yet (ROADMAP A6c); unset it")
 
 
 def _exchange_plan(kvstore):
@@ -131,6 +156,49 @@ class _StateFlats:
                 torch.split(flat, sizes), group)])
 
 
+class _ZeroState:
+    """One update group's ZeRO-1 layout (its keys' tensors packed in group
+    order, padded to a multiple of nproc, this rank's block of `block`
+    elements) and this rank's blocks of the group's states, filled from
+    the per-key states when made."""
+
+    __slots__ = ("sizes", "shapes", "total", "padded_total", "block",
+                 "dtype", "mp", "states", "w")
+
+    def __init__(self, group, nproc, rank):
+        like = group[0].pack_w
+        self.dtype = like.dtype
+        self.mp = group[0].master is not None
+        self.sizes = [e.pack_w.numel() for e in group]
+        self.shapes = [e.pack_w.shape for e in group]
+        self.total = sum(self.sizes)
+        self.padded_total = self.total + (-self.total) % nproc
+        self.block = self.padded_total // nproc
+        self.states = [
+            self.padded([e.leaves[s] for e in group])[
+                rank * self.block:(rank + 1) * self.block].clone()
+            for s in range(len(group[0].leaves))]
+        # the packed weights, one buffer for the group's life (its block
+        # keeps its address, so the update's plan is built once)
+        self.w = torch.zeros(self.padded_total, dtype=like.dtype,
+                             device=like.device)
+
+    def pack_weights(self, tensors):
+        """The weights packed into `w` (its padding stays zero)."""
+        torch.cat([t.reshape(-1) for t in tensors], out=self.w[:self.total])
+        return self.w
+
+    def padded(self, tensors):
+        """The tensors raveled, concatenated and zero-padded."""
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        pad = self.padded_total - self.total
+        return torch.cat([flat, flat.new_zeros(pad)]) if pad else flat
+
+    def unpack(self, flat):
+        return [v.view(shape) for v, shape in zip(
+            torch.split(flat[:self.total], self.sizes), self.shapes)]
+
+
 class FusedTrainStep:
     """The exchange and update of a whole trainable set, on flats. Owns
     the gradient flats of each layout it ran and the state flats of the
@@ -146,13 +214,14 @@ class FusedTrainStep:
         self._grad_flats = {}     # (layout, device) -> _GradFlats
         self._state_flats = {}    # group identity -> _StateFlats
         self._refused = set()     # key sets latched to the staged path
+        self._zero_flats = {}     # group identity -> _ZeroState (ZeRO-1)
+        self._zero_gauge = None
         self.last_dispatches = 0
 
     def run(self, indices, grads, weights, kvstore=None):
         """One fused step over the whole set. True when it ran (the
         gradients are left unreduced: the flats took copies); False
         leaves everything as it was, for the staged path."""
-        _refuse_zero1()
         o = self._updater.optimizer
         spec = _SUPPORTED.get(type(o))
         if spec is None or type(o) not in _STEP_OPTS or not indices:
@@ -174,6 +243,11 @@ class FusedTrainStep:
                 self._refused.clear()
             self._refused.add(probe)
             return False
+        if nproc > 1 and zero1_enabled():
+            self._run_zero1(entries, math, nproc)
+            return True
+        if self._zero_flats:
+            self.flush_state()        # ZeRO-1 turned off: states whole
         gf = self._pack(entries, kvstore)
         dispatches = 0
         if nproc > 1:
@@ -204,6 +278,66 @@ class FusedTrainStep:
         if ok is not None:
             _num.record_flag(ok, where="step")
         return True
+
+    def _run_zero1(self, entries, math, nproc):
+        """The ZeRO-1 step (module note): per update group, reduce-scatter
+        of the padded gradient flat, the verdict across ranks, the update
+        of this rank's block, all-gather of the weights."""
+        import torch.distributed as dist
+        from .mesh import all_gather_, all_reduce_, reduce_scatter_
+        group, rank = dist.group.WORLD, dist.get_rank()
+        up = self._updater
+        groups = up._groups(entries)
+        gids = [(tuple(e.index for e in g), g[0].lane) for g, _, _, _ in
+                groups]
+        if set(self._zero_flats) - set(gids):
+            self.flush_state()        # the groups changed: states whole
+        n_sharded = sum(len(g) for g, _, _, _ in groups)
+        if n_sharded != self._zero_gauge:
+            self._zero_gauge = n_sharded
+            ZERO1_SHARD_PARAMS.set(n_sharded)
+        dispatches = 0
+        with torch.no_grad():
+            blocks = []
+            for (grp, _, _, _), gid in zip(groups, gids):
+                zs = self._zero_flats.get(gid)
+                if zs is None:
+                    zs = self._zero_flats[gid] = _ZeroState(grp, nproc, rank)
+                whole = zs.padded([e.grad.to(zs.dtype) for e in grp])
+                blocks.append(reduce_scatter_(whole.new_empty(zs.block),
+                                              whole, group))
+                STEP_DISPATCHES.inc()
+                dispatches += 1
+            ok = None
+            if _num.enabled():
+                bad = torch.stack([(~finite_all(b)) for b in blocks]).any()
+                bad = all_reduce_(bad.to(torch.float32).reshape(1), group)
+                ok = bad[0] == 0
+                STEP_DISPATCHES.inc()
+                dispatches += 1
+            plans, up._plans = up._plans, {}
+            for (grp, lr, wd, t), gid, g in zip(groups, gids, blocks):
+                zs = self._zero_flats[gid]
+                w = zs.pack_weights([e.pack_w for e in grp])
+                mine = w[rank * zs.block:(rank + 1) * zs.block]
+                one = _Entry(gid, mine, mine, g, list(zs.states), None,
+                             ("zero1",) + gid[1:])
+                if math is None:
+                    up._run_sgd(plans, [one], lr, wd, ok)
+                else:
+                    up._run_foreach(math, [one], lr, wd, t, ok)
+                all_gather_(w, mine.clone(), group)
+                for e, v in zip(grp, zs.unpack(w)):
+                    e.pack_w.copy_(v)
+                    if e.master is not None:
+                        e.weight.copy_(e.master)
+                FUSED_GROUPS.inc()
+                opt._UPDATE_DISPATCHES.inc()
+                STEP_DISPATCHES.inc(2)        # the update, the all-gather
+                dispatches += 2
+        self.last_dispatches = dispatches
+        if ok is not None:
+            _num.record_flag(ok, where="step")
 
     def _pack(self, entries, kvstore):
         """Copy the gradients into the flats of the exchange's layout:
@@ -249,10 +383,38 @@ class FusedTrainStep:
                                            e.master is not None, views)
             e.leaves = views
 
+    def _flush_zero1(self):
+        """All-gather the ZeRO-1 state blocks into the per-key states
+        (collective: every rank calls it)."""
+        import torch.distributed as dist
+        from .mesh import all_gather_
+        t0 = time.perf_counter()
+        states = self._updater.states
+        with torch.no_grad():
+            for gid, zs in self._zero_flats.items():
+                wholes = [all_gather_(s.new_empty(zs.padded_total), s,
+                                      dist.group.WORLD) for s in zs.states]
+                for j, index in enumerate(gid[0]):
+                    st = states.get(index)
+                    if st is None:
+                        continue
+                    mp = zs.mp
+                    base = st[1] if mp else st
+                    leaves = list(base) if isinstance(base, (list, tuple)) \
+                        else [base]
+                    new = [zs.unpack(w)[j].clone() for w in wholes]
+                    if len(leaves) == len(new):
+                        states[index] = _with_leaves(st, mp, new)
+        self._zero_flats.clear()
+        ZERO1_ALLGATHER_SECONDS.observe(time.perf_counter() - t0)
+
     def flush_state(self):
         """Write the carried states out as compact per-key tensors (the
         `get_states`/`save_states` boundary) and forget the flats. A key
-        whose state is no longer a view of them keeps its state."""
+        whose state is no longer a view of them keeps its state. ZeRO-1's
+        blocks are all-gathered first (a collective)."""
+        if self._zero_flats:
+            self._flush_zero1()
         states = self._updater.states
         for gid, sf in self._state_flats.items():
             for j, index in enumerate(gid[0]):
@@ -272,6 +434,7 @@ class FusedTrainStep:
     def drop_state(self):
         """Forget the state flats (`set_states` replaced the states)."""
         self._state_flats.clear()
+        self._zero_flats.clear()
 
 
 def eligible(updater, indices, kvstore=None):
@@ -279,7 +442,6 @@ def eligible(updater, indices, kvstore=None):
     optimizer, a key set latched to the staged path, the store."""
     if not enabled():
         return False
-    _refuse_zero1()
     if not isinstance(updater, FusedUpdater) or \
             type(updater.optimizer) not in _STEP_OPTS:
         return False

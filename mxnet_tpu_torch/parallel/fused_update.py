@@ -179,7 +179,12 @@ class FusedUpdater(opt.Updater):
                 for group in lanes.values()]
 
     def update_all(self, indices, grads, weights):
-        """Apply the optimizer to the whole (index, grad, weight) set."""
+        """Apply the optimizer to the whole (index, grad, weight) set. A
+        fused step's ZeRO-1 state blocks are gathered whole first (the
+        staged path updates the per-key states)."""
+        owner = self._fused_step_owner
+        if owner is not None and owner._zero_flats:
+            owner.flush_state()
         spec = _SUPPORTED.get(type(self.optimizer))
         # SGD is never gated: on the card its only route is the kernel
         if spec is None or (spec[1] is not None and not fused_enabled()):

@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import threading
 import time
 import urllib.parse
 
@@ -71,7 +72,8 @@ from .bucketing import (BUCKET_COUNT, BUCKET_FILL, BUCKET_KEYS,
                         finite_all)
 from .fused_update import STEP_DISPATCHES as _STEP_DISPATCHES
 
-__all__ = ["DistKVStore", "init_distributed", "rank_device"]
+__all__ = ["DistKVStore", "bounded_barrier", "init_distributed",
+           "rank_device"]
 
 _AR_BYTES = _obs.counter("kvstore.allreduce.bytes",
                          "Local bytes contributed to cross-process "
@@ -176,23 +178,60 @@ def init_distributed(coordinator_address=None, num_processes=None,
 def wait_bounded(work, timeout_s, what):
     """Wait for a collective's `work`; with `timeout_s` > 0, at most that
     long, then raise `DeadlineExceeded` naming `what` and the budget (the
-    collective is left to the backend). A timed-out ``wait(timeout=)``
-    raises (gloo) or returns False; an error raised before the budget
-    ran out (a peer that closed its connection) propagates as it is."""
+    collective is left to the backend). The host polls
+    ``work.is_completed()`` and calls ``wait()`` once it is done: NCCL's
+    ``wait()`` of a barrier synchronizes the host with the barrier's
+    stream, whatever its timeout (ROADMAP C11). An error raised by the
+    collective (a peer that closed its connection) propagates as it
+    is."""
     if timeout_s <= 0:
         work.wait()
         return
-    t0 = time.monotonic()
-    try:
-        done = work.wait(timeout=datetime.timedelta(seconds=timeout_s))
-    except RuntimeError as err:
-        if time.monotonic() - t0 < timeout_s:
-            raise
-        raise DeadlineExceeded("%s did not complete within %gs"
-                               % (what, timeout_s)) from err
-    if done is False:
+    _poll(work, time.monotonic() + timeout_s, timeout_s, what)
+
+
+def _poll(work, deadline, timeout_s, what):
+    while not work.is_completed():
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise DeadlineExceeded("%s did not complete within %gs"
+                                   % (what, timeout_s))
+        time.sleep(min(0.005, left))
+    work.wait()
+
+
+def bounded_barrier(timeout_s, what, device=None):
+    """`torch.distributed.barrier` of the default group within `timeout_s`
+    seconds (> 0), else `DeadlineExceeded` naming `what`. The barrier is
+    started on a helper thread: NCCL sets a communicator's connections up
+    on the host at its first collective, which blocks until every peer
+    joins, so a peer that never comes would hold the caller inside the
+    call itself (ROADMAP C11, seen on two cards). Past the deadline the
+    helper is left behind, blocked, as the collective is; an error the
+    barrier raised is raised here."""
+    if timeout_s <= 0:
+        dist.barrier()
+        return
+    deadline = time.monotonic() + timeout_s
+    box = {}
+
+    def start():
+        try:
+            if device is not None and device.type == "cuda":
+                torch.cuda.set_device(device)
+            box["work"] = dist.barrier(async_op=True)
+        except Exception as err:      # noqa: BLE001 - raised on the caller
+            box["error"] = err
+    helper = threading.Thread(target=start, daemon=True,
+                              name="mxtpu-barrier")
+    helper.start()
+    helper.join(timeout_s)
+    if helper.is_alive():
         raise DeadlineExceeded("%s did not complete within %gs"
                                % (what, timeout_s))
+    if "error" in box:
+        raise box["error"]
+    _poll(box["work"], deadline, timeout_s, what)
 
 
 class _Pending:
@@ -394,7 +433,6 @@ class DistKVStore(KVStore):
         peer fails the barrier with a diagnosable error instead of
         hanging this process."""
         if self._nproc > 1:
-            wait_bounded(dist.barrier(async_op=True),
-                         getenv("MXTPU_BARRIER_TIMEOUT_S", 600.0),
-                         "kvstore barrier across %d processes"
-                         % self._nproc)
+            bounded_barrier(getenv("MXTPU_BARRIER_TIMEOUT_S", 600.0),
+                            "kvstore barrier across %d processes"
+                            % self._nproc, self.device)

@@ -27,7 +27,7 @@ import torch
 import mxnet_tpu as jmx
 from mxnet_tpu import gluon as jgluon
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import MXNetError, autograd, gluon
+from mxnet_tpu_torch import autograd, gluon
 from mxnet_tpu_torch.observability import registry
 from mxnet_tpu_torch.resilience import numerics
 
@@ -286,13 +286,24 @@ def test_launches_a_step_are_the_groups_at_one_process(kvstore, monkeypatch):
 
 
 def test_zero1_raises(monkeypatch):
+    """MXTPU_ZERO1=1 no longer raises. At one process it changes nothing,
+    as in JAX (ZeRO-1 needs nproc > 1): the fused step runs and equals
+    the staged path bit for bit. (Across processes:
+    tests/test_torch_sharded_dist.py.)"""
     monkeypatch.setenv("MXTPU_ZERO1", "1")
-    net = _port_net()
-    tr = gluon.Trainer(net.collect_params(), "sgd", dict(learning_rate=0.1))
-    with pytest.raises(MXNetError, match="ZeRO-1.*A6c"):
-        _port_step(net, tr, 0)
-    monkeypatch.setenv("MXTPU_FUSED_STEP", "0")
-    _port_step(net, tr, 0)          # the staged path has no ZeRO-1
+    finals = {}
+    for fused in ("1", "0"):
+        monkeypatch.setenv("MXTPU_FUSED_STEP", fused)
+        net = _port_net()
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           dict(learning_rate=0.1, momentum=0.9))
+        for s in range(2):
+            _port_step(net, tr, s)
+        finals[fused] = [p.data().clone()
+                         for p in net.collect_params().values()]
+        if fused == "1":
+            assert tr._updaters[0]._fused_step_owner is not None
+    assert all(torch.equal(a, b) for a, b in zip(finals["1"], finals["0"]))
 
 
 def test_module_update_takes_the_fused_step(monkeypatch):

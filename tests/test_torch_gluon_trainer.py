@@ -705,11 +705,12 @@ def test_initialize_follows_each_parameters_own_initializer(setup):
 
 
 def test_trainer_refuses_what_the_port_does_not_have(setup, monkeypatch):
-    """What the port refuses: ZeRO-1 (not ported) and the JAX package's
-    own refusals. 'dist_async' is accepted, as in JAX: the synchronous
-    distributed store under that name. A distributed store runs where
-    the parameters are: with no card, on the CPU the caller put them on,
-    at one process."""
+    """What the port refuses: the JAX package's own refusals. 'dist_async'
+    is accepted, as in JAX: the synchronous distributed store under that
+    name. A distributed store runs where the parameters are: with no
+    card, on the CPU the caller put them on, at one process. At one
+    process ``MXTPU_ZERO1=1`` changes nothing, as in JAX: the step is the
+    replicated one, bit for bit."""
     _, _, x, y = setup
     net = _port_net(setup)
     params = net.collect_params()
@@ -722,9 +723,15 @@ def test_trainer_refuses_what_the_port_does_not_have(setup, monkeypatch):
     _port_step(net, tr, x, y)
     assert tr._kvstore.device == torch.device("cpu")
     assert tr._kvstore.num_workers == 1
-    monkeypatch.setenv("MXTPU_ZERO1", "1")
-    with pytest.raises(MXNetError, match="A6c"):
+    before = {k: v.data().clone() for k, v in params.items()}
+    after = {}
+    for zero1 in ("1", "0"):
+        monkeypatch.setenv("MXTPU_ZERO1", zero1)
+        for k, v in params.items():
+            v.set_data(before[k].clone())
         _port_step(net, gluon.Trainer(params, "sgd", dict(OPT)), x, y)
+        after[zero1] = {k: v.data().clone() for k, v in params.items()}
+    assert all(torch.equal(after["1"][k], after["0"][k]) for k in before)
     monkeypatch.delenv("MXTPU_ZERO1")
     with pytest.raises(ValueError, match="Parameters"):
         gluon.Trainer([net.output.weight], "sgd")

@@ -350,3 +350,78 @@ sys.exit(1 if bad else 0)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_sharded_trainer_across_processes_runs_with_jax_blocked(tmp_path):
+    """With JAX and the JAX package blocked, a one-process gloo group on
+    the CPU: a ShardedTrainer over the gang's mesh (its collectives run
+    at world size 1) with global-batch BatchNorm and ZeRO-1, a compressed
+    one, a TrainerCheckpoint save and restore with its telemetry record,
+    `shard_map_compat` and the axis helpers, and the chaos spec parser."""
+    code = r"""
+import json, os, socket, sys
+BLOCK = ("jax", "jaxlib", "mxnet_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked import of " + name)
+for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
+    del sys.modules[m]
+sys.meta_path.insert(0, Block())
+import numpy as np, torch, torch.distributed as dist
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.parallel import ShardedTrainer, mesh
+from mxnet_tpu_torch.parallel.checkpoint import TrainerCheckpoint
+from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+from mxnet_tpu_torch.resilience import chaos
+tmp = sys.argv[1]
+os.environ["MXTPU_TELEMETRY"] = os.path.join(tmp, "t.jsonl")
+s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
+s.close()
+try:
+    with mx.cpu():
+        init_distributed("127.0.0.1:%d" % port, 1, 0)
+        m = mesh.make_mesh()
+        assert m.spans_processes and m.shape == {"dp": 1}
+        f = mesh.shard_map_compat(lambda x: mesh.psum(x, "dp"), m,
+                                  (mesh.PartitionSpec("dp"),),
+                                  mesh.PartitionSpec())
+        assert f(torch.ones(2)).tolist() == [1.0, 1.0]
+        net = mx.gluon.nn.HybridSequential()
+        net.add(mx.gluon.nn.Dense(8, in_units=5),
+                mx.gluon.nn.BatchNorm(in_channels=8),
+                mx.gluon.nn.Dense(3, in_units=8))
+        net.initialize(ctx=mx.cpu())
+        x = np.random.RandomState(0).randn(8, 5).astype(np.float32)
+        y = (np.arange(8) % 3).astype(np.float32)
+        loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        st = ShardedTrainer(net, loss, "sgd", {"learning_rate": 0.1,
+                            "momentum": 0.9}, shard_optimizer_state=True)
+        assert st._mesh == m and len(st._zero) == 6
+        comp = ShardedTrainer(net, loss, "sgd", {"learning_rate": 0.1},
+                              gradient_compression={"threshold": 0.1})
+        for _ in range(2):
+            st.step(x, y)
+            comp.step(x, y)
+        with TrainerCheckpoint(os.path.join(tmp, "ck")) as ck:
+            ck.save(2, st, wait=True)
+            other = ShardedTrainer(net, loss, "sgd", {"learning_rate": 0.1,
+                                   "momentum": 0.9})
+            assert ck.restore_latest(other) == 2
+        assert all(torch.equal(a, b) for a, b in zip(
+            st.params.values(), other.params.values()))
+    rec = [json.loads(l) for l in open(os.environ["MXTPU_TELEMETRY"])]
+    assert rec[0]["event"] == "ckpt_commit" and rec[0]["step"] == 2
+    assert chaos.parse_spec("checkpoint.save:p=0.5,kind=raise") == {
+        "checkpoint.save": {"p": 0.5, "kind": "raise"}}
+finally:
+    if dist.is_initialized():
+        dist.destroy_process_group()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCK)
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr

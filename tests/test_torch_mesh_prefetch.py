@@ -3,7 +3,8 @@ mxnet_tpu_torch/parallel/prefetch.py), on the CPU, with JAX not imported.
 
 Meshes: `make_mesh`'s shapes and errors (those of JAX's make_mesh), the
 one-device default, scoping by `use_mesh`, shardings and their placement,
-and the refusal of a mesh of several devices (ROADMAP A6c). The
+and the refusal of a local mesh of several devices (one process over
+several cards; the error names tools/launch.py). The
 prefetcher: the cases of JAX's tests/test_prefetch.py (:42-162), order,
 run-ahead (the consumer 5x slower than the source), exception relay,
 `close` joining its worker, depth below 1, and `stage_databatch`
@@ -101,15 +102,17 @@ def test_shardings_and_placement():
 
 
 def test_a_mesh_of_several_devices_is_a6c():
-    """A mesh over more devices than one: its layout is kept, but placing
-    data on it or training on it is one process over several cards,
-    ROADMAP A6c."""
+    """A local mesh over more devices than one: its layout is kept, but
+    placing data on it or training on it is one process over several
+    cards, which stays unported: the error names tools/launch.py (one
+    process a card, where the mesh spans the processes)."""
     mesh = make_mesh({"dp": 2}, devices=["cpu", "cpu"])
     assert isinstance(mesh, Mesh) and mesh.size == 2
-    with pytest.raises(MXNetError, match="A6c"):
+    assert not mesh.spans_processes
+    with pytest.raises(MXNetError, match="tools/launch.py"):
         put_sharded(np.zeros(2), replicated(mesh))
     net = gluon.nn.Dense(2, in_units=3, device="cpu")
-    with pytest.raises(MXNetError, match="A6c"):
+    with pytest.raises(MXNetError, match="tools/launch.py"):
         ShardedTrainer(net, gluon.loss.L2Loss(), "sgd", mesh=mesh)
 
 
@@ -245,3 +248,41 @@ def test_prefetcher_stages_on_a_side_stream_on_the_card():
                                                        device=dev)]
     assert out == [256 * 1024 * float(i) for i in range(1, 5)]
     assert all(s != torch.cuda.current_stream(dev) for s in streams)
+
+
+def test_shard_map_compat_and_the_axis_helpers_on_one_device():
+    """On a local one-device mesh `shard_map_compat` passes whole values
+    (every split is one block) and the axis helpers are identities:
+    psum, pmean (with its gradient), all_gather (a new leading axis of 1,
+    or tiled); axis_index 0. Outside a
+    shard_map or use_mesh scope, a helper without a mesh raises. (Across
+    processes: tests/test_torch_sharded_dist.py.)"""
+    from mxnet_tpu_torch.parallel import mesh as M
+    m = make_mesh({"dp": 1, "tp": 1}, devices=["cpu"])
+    x = torch.arange(6, dtype=torch.float32).reshape(3, 2)
+
+    def f(a, tree):
+        assert M.axis_index("dp") == 0 and M.axis_index("tp") == 0
+        g = M.all_gather(a, "dp")
+        return {"sum": M.psum(a, "dp"), "mean": M.pmean(tree["w"], "tp"),
+                "gathered": g, "tiled": M.all_gather(a, "dp", tiled=True)}
+    out = M.shard_map_compat(
+        f, m, (PartitionSpec("dp"), {"w": PartitionSpec()}),
+        PartitionSpec())(x, {"w": x + 1})
+    assert torch.equal(out["sum"], x) and torch.equal(out["mean"], x + 1)
+    assert out["gathered"].shape == (1, 3, 2) and \
+        torch.equal(out["gathered"][0], x)
+    assert torch.equal(out["tiled"], x)
+    a = torch.ones(2, requires_grad=True)
+    with use_mesh(m):
+        (M.pmean(a, "dp") * 3).sum().backward()
+    assert a.grad.tolist() == [3.0, 3.0]
+    with pytest.raises(MXNetError, match="no mesh"):
+        M.psum(x, "dp")
+    with pytest.raises(MXNetError, match="not an axis"):
+        M.axis_index("sp", m)
+    with pytest.raises(MXNetError, match="2 in_specs for 1"):
+        M.shard_map_compat(f, m, (PartitionSpec(), PartitionSpec()),
+                           PartitionSpec())(x)
+    assert not m.spans_processes and m.group("dp") is None
+    assert torch.equal(M.local_block(m, PartitionSpec("dp", "tp"), x), x)

@@ -16,8 +16,8 @@ holds on its own, bit for bit: remat (every policy) against the plain
 step, `input_specs` and accepted `param_rules` against the default,
 `step_many(n)` against n steps, `fit` over an NDArrayIter against the
 same batches through `step` (and against JAX's `fit`), a non-finite
-gradient leaving every tensor as it was; and the refusals that name
-ROADMAP A6c.
+gradient leaving every tensor as it was; and compression and ZeRO-1 on
+one device against JAX's one-device trainer with the same arguments.
 """
 import numpy as np
 import jax
@@ -494,10 +494,17 @@ def test_dispatches_count_one_a_step(nets):
     {"gradient_compression": {"type": "2bit", "threshold": 0.5}},
     {"shard_optimizer_state": True}, {"env": "MXTPU_ZERO1"}])
 def test_a6c_refusals(nets, kw, monkeypatch):
-    """Gradient compression and ZeRO-1 raise, naming ROADMAP A6c; they are
-    never ignored."""
+    """Gradient compression and ZeRO-1, refused before they were ported,
+    now train on one device as JAX's one-device trainer does with the same
+    arguments (compression round-trips every gradient through the 2-bit
+    quantizer; ZeRO-1 over one device holds every row)."""
     kw = dict(kw)
     if kw.pop("env", None):
         monkeypatch.setenv("MXTPU_ZERO1", "1")
-    with pytest.raises(MXNetError, match="A6c"):
-        _port(nets, "mlp", **kw)
+    st, jst, losses = _run_both(nets, "mlp", "sgd", SGD, **kw)
+    for got, want in losses:
+        assert abs(got - want) <= TOL_REL * max(1.0, abs(want)), losses
+    errs = _rel_errs(_port_state(st), _jax_state(jst))
+    assert max(errs.values()) <= TOL_REL, max(errs.items(),
+                                              key=lambda kv: kv[1])
+    assert st._shard_opt == bool(jst._shard_opt)

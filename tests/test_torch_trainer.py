@@ -240,25 +240,32 @@ def test_trainer_sets_up_its_update_once(weights, monkeypatch):
 
 
 def test_trainer_refuses_what_the_port_does_not_have(weights, monkeypatch):
-    """What the port's trainer refuses: gradient compression and ZeRO-1
-    (by argument or by MXTPU_ZERO1), both ROADMAP A6c; parameters the
+    """What the port's trainer refuses: ZeRO-1 together with gradient
+    compression (JAX's refusal; an MXTPU_ZERO1 default gives way to
+    compression), a compression type other than 2bit; parameters the
     optimizer does not have; a batch of the wrong arity; and, with no
-    card, the default device. (Adam and aux_mode="predict" are ported.)"""
+    card, the default device. (Adam, aux_mode="predict", compression and
+    ZeRO-1 are ported.)"""
     jnet, _, _ = weights
     np_params = {k: np.asarray(v.data()._data)
                  for k, v in jnet.collect_params().items()}
     st = _port_trainer(np_params)
     net = st._net
-    for kwargs in ({"gradient_compression": {"type": "2bit",
-                                             "threshold": 0.5}},
-                   {"shard_optimizer_state": True}):
-        with pytest.raises(MXNetError, match="A6c"):
-            ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
-                           device="cpu", **kwargs)
-    monkeypatch.setenv("MXTPU_ZERO1", "1")
-    with pytest.raises(MXNetError, match="ZeRO-1.*A6c"):
+    gc = {"type": "2bit", "threshold": 0.5}
+    with pytest.raises(MXNetError, match="shard_optimizer_state.*"
+                       "gradient_compression"):
         ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
-                       device="cpu")
+                       device="cpu", gradient_compression=gc,
+                       shard_optimizer_state=True)
+    with pytest.raises(MXNetError, match="compression type"):
+        ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
+                       device="cpu", gradient_compression={"type": "1bit"})
+    monkeypatch.setenv("MXTPU_ZERO1", "1")
+    assert ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", dict(OPT),
+                          device="cpu")._shard_opt
+    assert not ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                              dict(OPT), device="cpu",
+                              gradient_compression=gc)._shard_opt
     monkeypatch.delenv("MXTPU_ZERO1")
     with pytest.raises(MXNetError, match="unknown"):
         ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",

@@ -16,6 +16,7 @@ NCCL needs a card for each rank (rank r uses cuda:r). Exits 0 when both
 cases behave as described, else 1.
 """
 import argparse
+import faulthandler
 import json
 import os
 import socket
@@ -29,6 +30,8 @@ GANG_S = 60
 
 
 def worker(coordinator, rank, mode, flag, backend):
+    # a rank still stuck near the gang's limit prints where it waits
+    faulthandler.dump_traceback_later(GANG_S - 10)
     sys.path.insert(0, HERE)
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed

@@ -201,10 +201,35 @@ Phases; any failure exits non-zero before the final line:
              the host's ms to enqueue trainer.step, peak memory, and
              conv1x1_bn_stats, fused_sgd_momentum and
              train.step.dispatches a step; beside gluon_train's img/s.
+25. dist_sharded, 26. dist_sharded_small — ShardedTrainer across
+             processes (their functions say what they hold).
+
+27. record_train — train_imagenet.py's composition at full width: 1536
+             seeded synthetic 500x375 images in a .rec (JPEG q90 through
+             PIL, else NPY records) -> mx.io.ImageRecordIter (224 px
+             random crops and mirrors, b128, NHWC, shuffled,
+             preprocess_threads=8, round_batch=False; the native record
+             reader built from src/ under its file lock) ->
+             ShardedTrainer.prefetched -> ShardedTrainer.step on its CUDA
+             graph (train's ResNet-50 bf16 recipe). The reader and the
+             decoder, the host's CPU count, the loader alone and end to
+             end in img/s beside train's, io.batch_wait.seconds a step,
+             the busy share and io.record.queue_depth at each pull. Gates:
+             every record once an epoch (by the ids in its label and its
+             corner blocks), finite losses, 360 conv1x1_wgmma_kernel and
+             10 sgd_momentum_kernel launches over 10 profiled replays, and
+             the native reader wherever the native library builds.
+28. record_module — Module.fit (its prefetch loop) over an
+             ImageRecordIter: the narrow NHWC ResNet V1 symbol at 32 px,
+             b16, fp32, 2 epochs: finite losses, the second epoch's below
+             the first's, 6 conv1x1_bn_stats launches a step (the
+             executor's rewrite, conv1x1_simt_kernel) and one
+             fused_sgd_momentum launch a SGD group.
 
 The kernel phase also times conv1x1_bn_stats in fp32 at ResNet-50's 15
-shapes as module_train calls it (the CUDA-core kernel), beside its bound
-and matmul + var_mean.
+shapes as module_train calls it (the CUDA-core kernel), and in bf16 at
+MobileNet-1.0's 9 pointwise shapes as zoo_train calls it, beside its
+bound and matmul + var_mean.
 
 The kernel phase also holds the SGD kernel's MXNet form (the update of
 Gluon's SGD) against its plain version over ResNet-50's tensor list, in
@@ -2512,17 +2537,19 @@ def loader_fp32(n_batches=4):
     return BATCH * n_batches / (time.perf_counter() - t1), (t1 - t0) * 1e3
 
 
-def zoo_train(ops, dev, card, gen):
+def zoo_train(ops, dev, card, gen, per):
     """MobileNet-1.0 (get_model, NHWC) trained at 224x224, batch 128,
     with the gluon_train recipe: net.cast("bfloat16"), multi_precision
     SGD lr 0.1 momentum 0.9 wd 1e-4; batches from a seeded synthetic
     ArrayDataset through DataLoader(num_workers=4, pin_memory=True). 1
     warm-up and 10 timed steps: finite, falling losses, 13
-    conv1x1_bn_stats launches a forward, one SGD launch a step; the
-    kernel at MobileNet's 9 pointwise shapes (13 calls) held against its
-    plain version and timed; a narrow twin card against CPU. The images
-    are uint8, cast to bf16 on the card. Returns (launches, the
-    per-forward conv1x1 sums)."""
+    conv1x1_bn_stats launches a forward, one SGD launch a step; a narrow
+    twin card against CPU. The images are uint8, cast to bf16 on the
+    card. `per`: the kernel at MobileNet's 9 pointwise shapes (13 calls),
+    held against its plain version and timed in the kernel phase (before
+    the training phases' long profiles leave the profiler dropping
+    records). Returns (launches, `per` with the kernel's device ms inside
+    the profiled step)."""
     import gc
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import autograd
@@ -2627,10 +2654,6 @@ def zoo_train(ops, dev, card, gen):
          step_ms=wall / TRAIN_STEPS * 1e3, wall_s=wall, peak_mem_gb=peak_gb,
          setup_s=setup_s, losses_warm=warm.tolist(), losses=losses.tolist(),
          launches=launches, sgd_groups=sgd_groups, profile_one_step=profile)
-    # the kernel at the pointwise shapes of this forward
-    per = conv1x1_per_forward(ops, dev, gen, card,
-                              mobilenet_conv1x1_calls(BATCH, IMG),
-                              phase="kernel_mobilenet_shape")
     # the kernel's device time inside the profiled training step, where
     # the profiler saw the forward's 13 launches
     seen = sum(profile["conv1x1_kernels"].values())
@@ -4171,6 +4194,405 @@ def dist_sharded_small(dev, card):
             for k in ("conv1x1_bn_stats", "fused_sgd_momentum")}
 
 
+
+# ---------------------------------------------------------------------------
+# phases 27-28: the record-file input pipeline
+# ---------------------------------------------------------------------------
+RECORD = dict(images=1536, width=500, height=375, quality=90, threads=8,
+              warm=2, steps=10, classes=1000, check_every=97)
+RECORD_MODULE = dict(images=256, side=40, img=32, batch=16, epochs=2,
+                     classes=10)
+
+
+def _id_blocks(img, ident):
+    """Write `ident` (< 4096) into three 16x16 blocks of the top-left
+    corner, one hex digit each, as (digit * 16 + 8) in every channel: a
+    JPEG keeps a flat block aligned to its 16x16 MCUs within a few
+    levels."""
+    for k, shift in enumerate((8, 4, 0)):
+        img[:16, 16 * k:16 * k + 16] = ((ident >> shift) & 15) * 16 + 8
+
+
+def _read_id_blocks(img):
+    digits = [int(round((float(img[:16, 16 * k:16 * k + 16].mean()) - 8)
+                        / 16)) for k in range(3)]
+    return (digits[0] << 8) | (digits[1] << 4) | digits[2]
+
+
+def write_records(path, n, height, width, seed, classes, quality,
+                  class_pattern=False):
+    """n seeded smooth-noise RGB images (height x width) packed into the
+    indexed .rec at `path` (and its .idx): JPEG at `quality` where PIL is
+    importable, else `pack_img`'s NPY records. Record i carries id i in
+    its corner blocks and the label vector [class, i] (class i % classes);
+    with `class_pattern` the class also sets a colour bias the net can
+    learn. Returns the seconds it took."""
+    import torch.nn.functional as F
+    from concurrent.futures import ThreadPoolExecutor
+    from mxnet_tpu_torch import recordio
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(seed)
+    w = recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                   path, "w")
+    chunk = 128
+
+    def pack(i, img):
+        cls = i % classes
+        if class_pattern:
+            img[..., cls % 3] = np.clip(img[..., cls % 3].astype(np.int32)
+                                        + 40 * (cls // 3) - 60, 0, 255)
+        _id_blocks(img, i)
+        return recordio.pack_img(
+            recordio.IRHeader(0, [float(cls), float(i)], i, 0), img,
+            quality=quality, img_fmt=".jpg")
+
+    with ThreadPoolExecutor(8) as pool:
+        for lo in range(0, n, chunk):
+            m = min(chunk, n - lo)
+            low = torch.from_numpy(rng.rand(m, 3, max(2, height // 24),
+                                            max(2, width // 24))
+                                   .astype(np.float32))
+            imgs = (F.interpolate(low, size=(height, width),
+                                  mode="bilinear", align_corners=False)
+                    * 160 + 48).clamp(0, 255).to(torch.uint8) \
+                .permute(0, 2, 3, 1).contiguous().numpy()
+            for k, rec in enumerate(pool.map(pack, range(lo, lo + m),
+                                             list(imgs))):
+                w.write_idx(lo + k, rec)
+    w.close()
+    return time.perf_counter() - t0
+
+
+def _pulls(it, depths):
+    """The batches of `it`, recording io.record.queue_depth as each pull
+    sampled it."""
+    from mxnet_tpu_torch.observability import registry
+    gauge = registry.gauge("io.record.queue_depth")
+    while True:
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        depths.append(gauge.get())
+        yield batch
+
+
+def record_train(dev, card, train_img_s):
+    """train_imagenet.py's composition on the card, at ResNet-50's full
+    width: 1536 seeded synthetic 500x375 RGB images in a .rec (JPEG q90
+    where PIL is there, else NPY records) -> mx.io.ImageRecordIter
+    (data_shape (3, 224, 224), b128, NHWC, shuffle, rand_crop, rand_mirror,
+    ImageNet's mean/std, preprocess_threads=8, round_batch=False) ->
+    ShardedTrainer.prefetched
+    -> ShardedTrainer.step on its CUDA graph (bf16 over fp32 masters, SGD
+    momentum 0.9, wd 1e-4, lr 0.1), as the `train` phase sets it up.
+    Prints the reader and the decoder, the host's CPU count, the loader
+    alone (one epoch, no training) and end to end (10 steps after 2
+    warm-up steps of a new epoch) in img/s beside `train`'s img/s of this
+    call, io.batch_wait.seconds a step, the device busy share of a
+    profiled window and io.record.queue_depth at each pull. Gates: each
+    record once an epoch (read back through the ids), finite losses, 360
+    conv1x1_wgmma_kernel and 10 sgd_momentum_kernel launches over the
+    profiled window's 10 replays, and the native reader wherever the
+    native library builds. Returns {"replays": the profiler's counts,
+    "capture": the wrappers' counts over the first epoch}."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import _native, ops, recordio
+    from mxnet_tpu_torch.convert import init_resnet_params
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.observability import registry
+    from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel
+    from mxnet_tpu_torch.resilience import numerics
+    cfg = RECORD
+    n_img, batch = cfg["images"], BATCH
+    epoch_steps = n_img // batch
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rec_")
+    try:
+        path = os.path.join(tmp, "train.rec")
+        try:
+            import PIL  # noqa: F401
+            encoding = "jpeg q%d (PIL)" % cfg["quality"]
+        except ImportError:
+            encoding = "npy (pack_img without PIL)"
+        write_s = write_records(path, n_img, cfg["height"], cfg["width"], 0,
+                                cfg["classes"], cfg["quality"])
+        rec_bytes = os.path.getsize(path)
+        t = time.perf_counter()
+        lib = _native.ensure_built()
+        native_s = time.perf_counter() - t
+        native_jpeg = lib is not None and hasattr(lib, "MXTPUImdecodeJPEG")
+        build_log = ""
+        if lib is not None and not native_jpeg:
+            log = os.path.join(_native.build_dir(), "build.log")
+            if os.path.exists(log):
+                with open(log) as f:
+                    build_log = f.read()[-300:]
+        # the ids in the corner blocks are the records' own
+        reader = recordio.MXIndexedRecordIO(
+            os.path.splitext(path)[0] + ".idx", path, "r")
+        for i in range(0, n_img, cfg["check_every"]):
+            header, img = recordio.unpack_img(reader.read_idx(i), 1)
+            if header.id != i or int(header.label[1]) != i or \
+                    _read_id_blocks(img) != i:
+                fail("record_train: record %d reads back id %d, label %s, "
+                     "corner id %d" % (i, header.id, header.label,
+                                       _read_id_blocks(img)))
+        reader.close()
+        # normalized by ImageNet's channel means and deviations, as
+        # MXNet's image-classification examples feed ImageRecordIter
+        kw = dict(path_imgrec=path, data_shape=(3, IMG, IMG),
+                  batch_size=batch, layout="NHWC", shuffle=True,
+                  rand_crop=True, rand_mirror=True,
+                  preprocess_threads=cfg["threads"], round_batch=False,
+                  mean_r=123.68, mean_g=116.28, mean_b=103.53,
+                  std_r=58.395, std_g=57.12, std_b=57.375)
+
+        # the loader alone: one epoch, ids [class, id], no training
+        t = time.perf_counter()
+        it = mx.io.ImageRecordIter(label_width=2, **kw)
+        ids, first_ms, depths_alone = [], None, []
+        for b in _pulls(it, depths_alone):
+            if first_ms is None:
+                first_ms = (time.perf_counter() - t) * 1e3
+            x = b.data[0]
+            if tuple(x.shape) != (batch, IMG, IMG, 3) or \
+                    x.dtype != np.float32:
+                fail("record_train: loader batch %s %s" % (x.shape,
+                                                          x.dtype))
+            ids.extend(int(v) for v in b.label[0].asnumpy()[:, 1])
+        loader_s = time.perf_counter() - t
+        it.close()
+        reader_kind, decoders = it.reader, dict(it.decoders)
+        if sorted(ids) != list(range(n_img)):
+            fail("record_train: the loader's epoch served %d ids, %d "
+                 "distinct, want each of %d once"
+                 % (len(ids), len(set(ids)), n_img))
+        if lib is not None and reader_kind != "native":
+            fail("record_train: the native library built but the iterator "
+                 "read through %s" % reader_kind)
+        loader_img_s = n_img / loader_s
+        # the loader alone at fewer decode threads: how it scales
+        by_threads = {cfg["threads"]: loader_img_s}
+        for threads in (1, 2, 4):
+            t = time.perf_counter()
+            it = mx.io.ImageRecordIter(**dict(kw, preprocess_threads=threads))
+            n = sum(b.data[0].shape[0] for b in it)
+            by_threads[threads] = n / (time.perf_counter() - t)
+            it.close()
+
+        # training through the iterator
+        torch.cuda.reset_peak_memory_stats()
+        net = resnet50_v1(layout="NHWC", device=dev)
+        init_resnet_params(net, seed=0)
+        st = ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9,
+                             "wd": 1e-4}, compute_dtype="bfloat16",
+                            device=dev)
+        if not st._graph_on:
+            fail("record_train: the trainer is not on its CUDA-graph step")
+        it = mx.io.ImageRecordIter(**kw)
+        wait = registry.histogram("io.batch_wait.seconds")
+
+        def run(n_steps=None, on_step=None, depths=None):
+            pf = st.prefetched(_pulls(it, depths if depths is not None
+                                      else []))
+            losses = []
+            try:
+                for k, staged in enumerate(pf):
+                    if n_steps is not None and k == n_steps:
+                        break
+                    losses.append(st.step(*staged))
+                    if on_step is not None:
+                        on_step(k)
+            finally:
+                pf.close()
+            return torch.stack(losses).float().cpu().numpy() if losses \
+                else np.zeros(0)
+
+        # epoch 1, the main path: counts at 0 just before, read just after
+        # (the graph's warm-up steps and its capture call the wrappers; its
+        # replays call none, and the profiler counts them below)
+        numerics.drain_flags()
+        depths_train = []
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        losses1 = run(depths=depths_train)
+        epoch1_s = time.perf_counter() - t
+        capture = ops.launch_counts()
+        calls = data_parallel._WARMUP + 1
+        if capture["conv1x1_bn_stats"] != 36 * calls or \
+                capture["fused_sgd_momentum"] != calls:
+            fail("record_train: the first epoch's wrappers launched %s, "
+                 "want %d conv1x1_bn_stats and %d fused_sgd_momentum (the "
+                 "graph's warm-up and capture)" % (capture, 36 * calls,
+                                                   calls))
+        if len(losses1) != epoch_steps:
+            fail("record_train: %d steps in the first epoch, want %d"
+                 % (len(losses1), epoch_steps))
+
+        # epoch 2: end to end over 10 steps after 2 warm-up steps
+        it.reset()
+        mark = {}
+
+        def on_step(k):
+            if k in (cfg["warm"] - 1, cfg["warm"] + cfg["steps"] - 1):
+                torch.cuda.synchronize()
+                mark[k] = (time.perf_counter(), wait.sum())
+        losses2 = run(n_steps=cfg["warm"] + cfg["steps"], on_step=on_step)
+        (t0, w0), (t1, w1) = mark[cfg["warm"] - 1], \
+            mark[cfg["warm"] + cfg["steps"] - 1]
+        e2e_s = t1 - t0
+        wait_s = (w1 - w0) / cfg["steps"]
+        e2e_img_s = batch * cfg["steps"] / e2e_s
+        guard = numerics.drain_flags()
+        losses = np.concatenate([losses1, losses2])
+        if not np.isfinite(losses).all() or guard["skipped_steps"]:
+            fail("record_train: losses %s, numerics %s" % (losses, guard))
+
+        # a profiled window of 10 replays: the launches and the busy share
+        want = {"conv1x1_bn_stats": 36 * cfg["steps"],
+                "fused_sgd_momentum": cfg["steps"]}
+        for _ in range(10):
+            it.reset()
+            t = time.perf_counter()
+            events = device_events(lambda: run(n_steps=cfg["steps"]), 1)
+            window_s = time.perf_counter() - t
+            replayed = {k: sum(c for name, (_, c) in events.items()
+                               if any(part in name for part in parts))
+                        for k, parts in KERNEL_NAMES.items()}
+            if all(replayed[k] >= v for k, v in want.items()):
+                break
+            print("chip_smoke: record_train's profile saw %s, want %s"
+                  % (replayed, want), file=sys.stderr, flush=True)
+        numerics.drain_flags()
+        wgmma = sum(c for name, (_, c) in events.items()
+                    if "conv1x1_wgmma_kernel" in name)
+        if replayed["conv1x1_bn_stats"] != want["conv1x1_bn_stats"] or \
+                wgmma != want["conv1x1_bn_stats"] or \
+                replayed["fused_sgd_momentum"] != want["fused_sgd_momentum"]:
+            fail("record_train: the profiler saw %s (%d conv1x1_wgmma_kernel)"
+                 " over %d replays, want %s, all conv1x1 on wgmma"
+                 % (replayed, wgmma, cfg["steps"], want))
+        dev_us = {k: us for k, (us, _) in events.items()}
+        window_device_ms = sum(dev_us.values()) / 1e3
+        step_device_ms = window_device_ms / cfg["steps"]
+        it.close()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        emit(phase="record_train", card=card,
+             model="ResNet-50 v1, NHWC, seeded random weights (Uniform "
+             "0.07)", batch=batch, image=IMG, dtype="bf16 compute, fp32 "
+             "master", records=n_img, record_size=[cfg["height"],
+                                                    cfg["width"]],
+             encoding=encoding, rec_mb=rec_bytes / 1e6,
+             write_records_s=write_s, native_library_s=native_s,
+             native_library=lib is not None, native_jpeg=native_jpeg,
+             native_build_log_tail=build_log, reader=reader_kind,
+             decoders=decoders, host_cpus=os.cpu_count(),
+             host_cpus_usable=len(os.sched_getaffinity(0)),
+             preprocess_threads=cfg["threads"],
+             loader_alone_img_s=loader_img_s,
+             loader_alone_img_s_by_threads=by_threads,
+             loader_alone_first_batch_ms=first_ms,
+             loader_alone_epoch_s=loader_s,
+             end_to_end_img_s=e2e_img_s, train_img_s_same_call=train_img_s,
+             end_to_end_over_train=e2e_img_s / train_img_s
+             if train_img_s else None,
+             end_to_end_steps=cfg["steps"], warm_steps=cfg["warm"],
+             end_to_end_s=e2e_s, first_epoch_s=epoch1_s,
+             batch_wait_s_per_step=wait_s,
+             device_ms_per_step=step_device_ms,
+             device_busy_share=step_device_ms * cfg["steps"] / 1e3 / e2e_s,
+             profiled_window_s=window_s,
+             profiled_window_device_ms=window_device_ms,
+             profiled_window_busy_share=window_device_ms / 1e3 / window_s,
+             device_ms_by_kind=by_kind(dev_us, cfg["steps"]),
+             queue_depth_at_each_pull=dict(
+                 loader_alone=depths_alone, first_epoch=depths_train),
+             ids_once_per_epoch=True, losses=losses.tolist(),
+             replays_launches=replayed, capture_launches=capture,
+             peak_mem_gb=peak_gb)
+        del st, net
+        return {"replays": replayed, "capture": capture}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def record_module(dev, card):
+    """Module.fit over an ImageRecordIter on the card: 256 seeded 40x40
+    images (class-coloured, JPEG) -> ImageRecordIter (32 px crops, b16,
+    NHWC, fp32, shuffle, rand_crop, rand_mirror, mean/std 128/64) ->
+    Module.fit (its prefetch loop stages each batch on the card) over the
+    narrow ResNet V1 symbol (tools/torch_resnet_symbol.py, units [1, 1],
+    widths [16, 32, 64], 10 classes), SGD lr 0.05 momentum 0.9, 2 epochs.
+    NHWC, since the executor rewrites only a 1x1 NHWC convolution before
+    a training BatchNorm (fp32: conv1x1_simt_kernel). Gates: finite
+    losses, the second epoch's mean loss below the first's, 6
+    conv1x1_bn_stats launches a step and one fused_sgd_momentum launch a
+    SGD group. Returns the wrappers' counts."""
+    import shutil
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import ops
+    from mxnet_tpu_torch.observability import registry
+    cfg = RECORD_MODULE
+    groups = registry.counter("optimizer.fused.groups")
+    resnet_v1_symbol = _load_script(RESNET_SYMBOL).resnet_v1_symbol
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recmod_")
+    try:
+        path = os.path.join(tmp, "m.rec")
+        write_records(path, cfg["images"], cfg["side"], cfg["side"], 1,
+                      cfg["classes"], RECORD["quality"], class_pattern=True)
+        it = mx.io.ImageRecordIter(
+            path_imgrec=path, data_shape=(3, cfg["img"], cfg["img"]),
+            batch_size=cfg["batch"], layout="NHWC", shuffle=True,
+            rand_crop=True, rand_mirror=True, preprocess_threads=4,
+            mean_r=128.0, mean_g=128.0, mean_b=128.0, std_r=64.0,
+            std_g=64.0, std_b=64.0)
+        with mx.name.NameManager():
+            sym = resnet_v1_symbol(mx, units=(1, 1), filters=(16, 32, 64),
+                                   num_classes=cfg["classes"])
+        mod = mx.mod.Module(sym, context=mx.gpu(0))
+        losses, cb = _step_losses()
+        groups0 = groups.get()
+        mx.random.seed(3)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        mod.fit(it, num_epoch=cfg["epochs"], eval_metric="ce",
+                batch_end_callback=cb, initializer=mx.init.Xavier(
+                    magnitude=2.0), optimizer="sgd", optimizer_params={
+                    "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+        wall = time.perf_counter() - t
+        launches = ops.launch_counts()
+        sgd_groups = groups.get() - groups0
+        it.close()
+        steps = cfg["epochs"] * (cfg["images"] // cfg["batch"])
+        per_epoch = len(losses) // cfg["epochs"]
+        first, second = np.mean(losses[:per_epoch]), \
+            np.mean(losses[per_epoch:])
+        if len(losses) != steps or not np.isfinite(losses).all() or \
+                not second < first:
+            fail("record_module: %d losses (want %d), epoch means %g, %g"
+                 % (len(losses), steps, first, second))
+        if launches["conv1x1_bn_stats"] != 6 * steps or \
+                launches["fused_sgd_momentum"] != sgd_groups or \
+                sgd_groups < steps:
+            fail("record_module: launches %s over %d steps (%d SGD groups), "
+                 "want %d conv1x1_bn_stats and one fused_sgd_momentum per "
+                 "group" % (launches, steps, sgd_groups, 6 * steps))
+        emit(phase="record_module", card=card, steps=steps,
+             batch=cfg["batch"], image=cfg["img"], dtype="fp32",
+             layout="NHWC", reader=it.reader, decoders=dict(it.decoders),
+             img_s=steps * cfg["batch"] / wall, wall_s=wall,
+             epoch_mean_losses=[float(first), float(second)],
+             launches=launches, sgd_groups=sgd_groups)
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -4254,6 +4676,10 @@ def main():
     conv_module = conv1x1_per_forward(
         ops, dev, gen, card, phase="kernel_module_shape",
         expect="conv1x1_simt_kernel", dtype=torch.float32)
+    # zoo_train's MobileNet shapes (bf16)
+    conv_mobilenet = conv1x1_per_forward(
+        ops, dev, gen, card, mobilenet_conv1x1_calls(BATCH, IMG),
+        phase="kernel_mobilenet_shape")
 
     # phases 4, 5: the model
     small_model_check(dev)
@@ -4273,7 +4699,8 @@ def main():
     gpt_nd = nd_gpt(ops, dev, card, gen)
     # phases 14-16: Gluon breadth
     cifar_launches = gluon_cifar(ops, dev, card)
-    zoo_launches, mobilenet = zoo_train(ops, dev, card, gen)
+    zoo_launches, mobilenet = zoo_train(ops, dev, card, gen,
+                                        conv_mobilenet)
     ln_gluon = gluon_layers(ops, dev, card, gen)
     # phases 17-22: Symbol, the executor, CachedOp and the Module API
     module_small(dev)
@@ -4288,6 +4715,10 @@ def main():
     # phases 25-26: ShardedTrainer across processes
     sharded_launches = dist_sharded(dev, card, train_launches["first_window"])
     sharded_small_launches = dist_sharded_small(dev, card)
+    # phases 27-28: the record-file input pipeline
+    record_launches = record_train(dev, card,
+                                   train_launches["first_window"]["img_s"])
+    record_module_launches = record_module(dev, card)
     by_path = {name: {"train": train_launches["graph_replays"][name],
                       "train_graph_capture":
                           train_launches["graph_capture"][name],
@@ -4306,7 +4737,11 @@ def main():
                       "dist_sharded": sharded_launches[name]["replays"],
                       "dist_sharded_capture":
                           sharded_launches[name]["capture"],
-                      "dist_sharded_small": sharded_small_launches[name]}
+                      "dist_sharded_small": sharded_small_launches[name],
+                      "record_train": record_launches["replays"][name],
+                      "record_train_capture":
+                          record_launches["capture"][name],
+                      "record_module": record_module_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
                              "nd_gpt": gpt_nd["launches"]["layer_norm"],

@@ -28,7 +28,12 @@ NHWC convolutions before a training BatchNorm run `conv1x1_bn_stats`;
 and distributed training over torch.distributed: the 'dist_*' kvstore
 types (`parallel.kvstore_dist`), fusion buckets (`parallel.bucketing`),
 2-bit compression (`gradient_compression`) and the fused exchange +
-update step behind `gluon.Trainer` and `Module` (`parallel.fused_step`).
+update step behind `gluon.Trainer` and `Module` (`parallel.fused_step`);
+and the record-file input pipeline: `recordio`, the native record loader
+(`_native`, built at first use under a file lock), `image` (alias `img`)
+with its augmenters and `ImageIter`, `io.ImageRecordIter` and the other
+file iterators, `image.ImageDetIter`, the record datasets and Module
+`fit`'s prefetching loop.
 """
 from .base import MXNetError, __version__, getenv
 from .context import (Context, DeviceUnreachable, cpu, current_context,
@@ -38,6 +43,8 @@ from . import (autograd, convert, gluon, initializer, kvstore, lr_scheduler,
                resilience, serving)
 from . import (attribute, callback, cached_op, executor, graph, io, metric,
                model, module, name, symbol)
+from . import image, recordio
+from . import image as img
 from .attribute import AttrScope
 from .cached_op import CachedOp
 
@@ -50,8 +57,9 @@ mod = module
 __all__ = ["AttrScope", "CachedOp", "Context", "MXNetError",
            "DeviceUnreachable", "__version__", "attribute", "autograd",
            "cached_op", "callback", "convert", "cpu", "current_context", "executor", "getenv",
-           "gluon", "gpu", "graph", "init", "initializer", "io", "kv",
+           "gluon", "gpu", "graph", "image", "img", "init", "initializer", "io",
+           "kv",
            "kvstore", "lr_scheduler", "metric", "mod", "model", "module",
            "name", "nd", "ndarray", "num_gpus", "observability", "ops",
-           "optimizer", "parallel", "random", "resilience",
+           "optimizer", "parallel", "random", "recordio", "resilience",
            "resolve_device", "serving", "sym", "symbol"]

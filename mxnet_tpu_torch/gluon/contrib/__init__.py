@@ -1,3 +1,4 @@
 """Gluon contrib (counterpart of mxnet_tpu/gluon/contrib/): the
-concurrent containers that the model zoo builds on."""
-from . import nn  # noqa: F401
+concurrent containers that the model zoo builds on, and `data`'s
+IntervalSampler."""
+from . import data, nn  # noqa: F401

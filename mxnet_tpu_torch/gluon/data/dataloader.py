@@ -84,6 +84,9 @@ def _worker_initializer(dataset, batchify_fn):
     global _worker_dataset, _worker_batchify
     _worker_dataset = dataset
     _worker_batchify = batchify_fn
+    fork = getattr(dataset, "_fork", None)
+    if fork is not None:        # a file handle of the worker's own
+        fork()
     # nothing in a worker may reach the card: the CPU is its default
     Context("cpu").__enter__()
     # a forked child must not enter the parent's OpenMP pool (it can

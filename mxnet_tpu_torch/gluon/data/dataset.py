@@ -1,11 +1,18 @@
 """Datasets (counterpart of mxnet_tpu/gluon/data/dataset.py): Dataset with
-its lazy `transform`/`transform_first`, SimpleDataset, ArrayDataset.
-`RecordFileDataset` waits for the recordio port."""
+its lazy `transform`/`transform_first`, SimpleDataset, ArrayDataset and
+RecordFileDataset.
+
+A dataset that holds an open file gives itself a `_fork()`, which a
+DataLoader worker calls once after the fork (as later MXNet's
+`worker_loop` does): forked workers must not share one file offset."""
 from __future__ import annotations
 
-from ...ndarray import NDArray
+import os
 
-__all__ = ["ArrayDataset", "Dataset", "SimpleDataset"]
+from ...ndarray import NDArray
+from ... import recordio
+
+__all__ = ["ArrayDataset", "Dataset", "RecordFileDataset", "SimpleDataset"]
 
 
 class Dataset:
@@ -48,6 +55,11 @@ class _LazyTransformDataset(Dataset):
     def __init__(self, data, fn):
         self._data = data
         self._fn = fn
+
+    def _fork(self):
+        fork = getattr(self._data, "_fork", None)
+        if fork is not None:
+            fork()
 
     def __len__(self):
         return len(self._data)
@@ -92,3 +104,25 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """Dataset over a RecordIO (.rec) file and its .idx
+    (dataset.py:103; reference: data/dataset.py:148): item i is the raw
+    record of the i-th key."""
+
+    def __init__(self, filename):
+        self.idx_file = os.path.splitext(filename)[0] + ".idx"
+        self.filename = filename
+        self._record = recordio.MXIndexedRecordIO(self.idx_file,
+                                                  self.filename, "r")
+
+    def _fork(self):
+        """A file handle of this process's own (a forked worker's)."""
+        self._record.reset()
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

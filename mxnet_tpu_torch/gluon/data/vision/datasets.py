@@ -6,7 +6,7 @@ They read the standard files already under `root` (the same names and
 formats the reference downloads) and raise RuntimeError when they are
 absent: nothing is fetched over a network. Images are uint8 NDArrays on
 the CPU, so a DataLoader's worker can read them without the card.
-`ImageRecordDataset` waits for the recordio port.
+`ImageRecordDataset` reads images from a RecordIO file (datasets.py:178).
 """
 from __future__ import annotations
 
@@ -19,10 +19,11 @@ import numpy as np
 
 from ....context import cpu
 from .... import ndarray
-from ..dataset import Dataset
+from ..dataset import Dataset, RecordFileDataset
+from ....recordio import unpack_img
 
 __all__ = ["CIFAR10", "CIFAR100", "FashionMNIST", "ImageFolderDataset",
-           "MNIST"]
+           "ImageRecordDataset", "MNIST"]
 
 
 def _host_array(data):
@@ -170,6 +171,27 @@ class CIFAR100(CIFAR10):
                 -1, 3072 + 2)
         return data[:, 2:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1), \
             data[:, 0 + self._fine_label].astype(np.int32)
+
+
+class ImageRecordDataset(RecordFileDataset):
+    """Images and labels from a RecordIO file (datasets.py:178;
+    reference: vision/datasets.py:269): item i is (image, label), the
+    image a uint8 HWC NDArray on the CPU decoded with `flag` (1 colour,
+    0 grayscale), the label the record header's."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        super().__init__(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __getitem__(self, idx):
+        record = super().__getitem__(idx)
+        header, img = unpack_img(record, self._flag)
+        img = ndarray.array(img, ctx=cpu())
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
 
 
 class ImageFolderDataset(Dataset):

@@ -9,27 +9,43 @@ around ("pad"), dropped ("discard") or carried into the next epoch
 ("roll_over"). Its batches are host (CPU) NDArrays, as MXNet's are: the
 executor that consumes them copies them to its device.
 
-Not ported yet (ROADMAP A7): the record iterators (`ImageRecordIter`,
-`MNISTIter`, `CSVIter`, `LibSVMIter`) and the threaded
-`PrefetchingIter`.
+The file iterators follow the JAX package's: `CSVIter` (:425) and
+`MNISTIter` (:455) read their files into an `NDArrayIter`, `LibSVMIter`
+(:500) emits `ndarray.sparse.CSRNDArray` batches, `PrefetchingIter`
+(:204) pulls from its iterators on background threads, and
+`ImageRecordIter` (`io_record.py`) resolves lazily (:491). Every
+``next(it)`` passes the ``io.read`` injection site first, retried under
+``MXTPU_IO_RETRIES`` (only the gate is retried: a queue-backed iterator
+must never replay ``next()``).
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import namedtuple
 
 import numpy as np
 
+from .base import getenv
 from .context import cpu
 from .ndarray import NDArray, array as _nd_array
 from .observability import registry as _obs
+from .observability.telemetry import is_producer_thread
+from .resilience.chaos import chaos_point
+from .resilience.retry import RetryPolicy, TransientError, retry_call
 
 # consumer-side data-stall telemetry: how long next() blocked before a
-# batch was ready
+# batch was ready; pulls made on prefetch producer threads overlap the
+# consumer's compute and count as assembly time instead
 _BATCH_WAIT = _obs.histogram("io.batch_wait.seconds",
                              "Time the consumer blocked waiting for a batch")
+_BATCH_ASSEMBLE = _obs.histogram(
+    "io.batch_assemble.seconds",
+    "Batch pull/assembly time on prefetch producer threads")
 
-__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter"]
+__all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "CSVIter",
+           "ImageRecordIter", "LibSVMIter", "ResizeIter", "PrefetchingIter",
+           "MNISTIter"]
 
 
 def nd_array(x):
@@ -106,10 +122,22 @@ class DataIter:
                              pad=self.getpad(), index=self.getindex())
         raise StopIteration
 
+    def _io_retry_policy(self):
+        pol = getattr(self, "_io_retry_pol", None)
+        if pol is None:     # one per iterator: no env parse per batch
+            pol = self._io_retry_pol = RetryPolicy(
+                max_attempts=getenv("MXTPU_IO_RETRIES", 8),
+                base_delay=getenv("MXTPU_RETRY_BASE_DELAY_S", 0.01),
+                max_delay=0.5, retry_on=(TransientError,), what="io.read")
+        return pol
+
     def __next__(self):
+        # the `io.read` injection site; only the gate is retried
+        retry_call(chaos_point, "io.read", policy=self._io_retry_policy())
         t0 = time.perf_counter()
         batch = self.next()
-        _BATCH_WAIT.observe(time.perf_counter() - t0)
+        hist = _BATCH_ASSEMBLE if is_producer_thread() else _BATCH_WAIT
+        hist.observe(time.perf_counter() - t0)
         return batch
 
     def iter_next(self):
@@ -158,6 +186,111 @@ class ResizeIter(DataIter):
             self.data_iter.reset()
             self.current_batch = self.data_iter.next()
         self.cur += 1
+        return True
+
+    def next(self):
+        if self.iter_next():
+            return self.current_batch
+        raise StopIteration
+
+    def getdata(self):
+        return self.current_batch.data
+
+    def getlabel(self):
+        return self.current_batch.label
+
+    def getindex(self):
+        return self.current_batch.index
+
+    def getpad(self):
+        return self.current_batch.pad
+
+
+class PrefetchingIter(DataIter):
+    """Background-thread prefetcher (reference: io.py:349; the C++ analog
+    is iter_prefetcher.h). Overlaps host batch assembly with device work."""
+
+    def __init__(self, iters, rename_data=None, rename_label=None):
+        super().__init__()
+        if not isinstance(iters, list):
+            iters = [iters]
+        self.n_iter = len(iters)
+        assert self.n_iter > 0
+        self.iters = iters
+        self.rename_data = rename_data
+        self.rename_label = rename_label
+        self.batch_size = self.provide_data[0][1][0]
+        self.data_ready = [threading.Event() for _ in range(self.n_iter)]
+        self.data_taken = [threading.Event() for _ in range(self.n_iter)]
+        for e in self.data_taken:
+            e.set()
+        self.started = True
+        self.current_batch = [None for _ in range(self.n_iter)]
+        self.next_batch = [None for _ in range(self.n_iter)]
+
+        def prefetch_func(self, i):
+            while True:
+                self.data_taken[i].wait()
+                if not self.started:
+                    break
+                try:
+                    self.next_batch[i] = self.iters[i].next()
+                except StopIteration:
+                    self.next_batch[i] = None
+                self.data_taken[i].clear()
+                self.data_ready[i].set()
+
+        self.prefetch_threads = [
+            threading.Thread(target=prefetch_func, args=[self, i], daemon=True)
+            for i in range(self.n_iter)]
+        for thread in self.prefetch_threads:
+            thread.start()
+
+    def __del__(self):
+        self.started = False
+        for e in self.data_taken:
+            e.set()
+
+    @property
+    def provide_data(self):
+        if self.rename_data is None:
+            return sum([i.provide_data for i in self.iters], [])
+        return sum([[
+            DataDesc(r[x.name], x.shape, x.dtype)
+            if isinstance(x, DataDesc) else DataDesc(*x)
+            for x in i.provide_data
+        ] for r, i in zip(self.rename_data, self.iters)], [])
+
+    @property
+    def provide_label(self):
+        if self.rename_label is None:
+            return sum([i.provide_label for i in self.iters], [])
+        return sum([[
+            DataDesc(r[x.name], x.shape, x.dtype)
+            if isinstance(x, DataDesc) else DataDesc(*x)
+            for x in i.provide_label
+        ] for r, i in zip(self.rename_label, self.iters)], [])
+
+    def reset(self):
+        for e in self.data_ready:
+            e.wait()
+        for i in self.iters:
+            i.reset()
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
+
+    def iter_next(self):
+        for e in self.data_ready:
+            e.wait()
+        if self.next_batch[0] is None:
+            return False
+        self.current_batch = self.next_batch[0]
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
         return True
 
     def next(self):
@@ -292,3 +425,166 @@ class NDArrayIter(DataIter):
                 self.cursor + self.batch_size > self.num_data:
             return self.cursor + self.batch_size - self.num_data
         return 0
+
+
+class CSVIter(DataIter):
+    """CSV file iterator (reference: src/io/iter_csv.cc, registered :218)."""
+
+    def __init__(self, data_csv, data_shape, label_csv=None, label_shape=(1,),
+                 batch_size=1, round_batch=True, dtype="float32", **kwargs):
+        super().__init__(batch_size)
+        data = np.loadtxt(data_csv, delimiter=",",
+                          dtype=dtype).reshape((-1,) + tuple(data_shape))
+        label = None
+        if label_csv is not None:
+            label = np.loadtxt(label_csv, delimiter=",", dtype=dtype)
+            label = label.reshape((-1,) + tuple(label_shape))
+            if label_shape == (1,):
+                label = label.reshape(-1)
+        else:
+            label = np.zeros(data.shape[0], dtype=dtype)
+        self._inner = NDArrayIter(data, label, batch_size=batch_size,
+                                  last_batch_handle="pad"
+                                  if round_batch else "discard",
+                                  label_name="label")
+        self.provide_data = self._inner.provide_data
+        self.provide_label = self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class MNISTIter(DataIter):
+    """MNIST idx-format iterator (reference: src/io/iter_mnist.cc:260)."""
+
+    def __init__(self, image, label, batch_size=128, shuffle=True, flat=False,
+                 silent=False, seed=0, **kwargs):
+        super().__init__(batch_size)
+        import gzip
+        import struct
+
+        def read_idx(path):
+            opener = gzip.open if path.endswith(".gz") else open
+            with opener(path, "rb") as f:
+                magic = struct.unpack(">I", f.read(4))[0]
+                ndim = magic & 0xFF
+                dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+                return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+        img = read_idx(image).astype(np.float32) / 255.0
+        lbl = read_idx(label).astype(np.float32)
+        if flat:
+            img = img.reshape(img.shape[0], -1)
+        else:
+            img = img.reshape(img.shape[0], 1, img.shape[1], img.shape[2])
+        self._inner = NDArrayIter(img, lbl, batch_size=batch_size,
+                                  shuffle=shuffle)
+        self.provide_data = [DataDesc("data", self._inner.provide_data[0].shape)]
+        self.provide_label = [DataDesc("label",
+                                       self._inner.provide_label[0].shape)]
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+def __getattr__(name):
+    # ImageRecordIter lives in io_record.py (the threaded pipeline); the
+    # lazy import keeps `import mxnet_tpu_torch` light
+    if name == "ImageRecordIter":
+        from .io_record import ImageRecordIter
+        return ImageRecordIter
+    raise AttributeError(name)
+
+
+class LibSVMIter(DataIter):
+    """libsvm-format iterator emitting CSR batches
+    (reference: src/io/iter_libsvm.cc, io.LibSVMIter).
+
+    Lines: ``<label> <idx>:<val> <idx>:<val> ...``; indices 0-based like
+    the reference's default. Labels may themselves be sparse via
+    `label_libsvm`."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size,
+                 label_libsvm=None, label_shape=None, round_batch=True,
+                 data_name="data", label_name="softmax_label", **kwargs):
+        super().__init__(batch_size)
+        self._feat_dim = int(data_shape[0]) if not isinstance(
+            data_shape, int) else int(data_shape)
+        self._rows, self._labels = self._parse(data_libsvm,
+                                               self._feat_dim)
+        self._label_dim = 1
+        if label_libsvm:
+            ldim = int(label_shape[0]) if label_shape else 1
+            lrows, _ = self._parse(label_libsvm, ldim)
+            dense_labels = []
+            for idxs, vals in lrows:
+                row = np.zeros((ldim,), np.float32)
+                row[idxs] = vals
+                dense_labels.append(row)
+            self._labels = dense_labels
+            self._label_dim = ldim
+        self._round_batch = round_batch
+        self.provide_data = [DataDesc(data_name,
+                                      (batch_size, self._feat_dim))]
+        lshape = (batch_size,) if self._label_dim == 1 \
+            else (batch_size, self._label_dim)
+        self.provide_label = [DataDesc(label_name, lshape)]
+        self._cur = 0
+
+    @staticmethod
+    def _parse(path, dim):
+        rows, labels = [], []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                idxs, vals = [], []
+                for tok in parts[1:]:
+                    i, v = tok.split(":")
+                    idxs.append(int(i))
+                    vals.append(float(v))
+                rows.append((np.asarray(idxs, np.int32),
+                             np.asarray(vals, np.float32)))
+        return rows, labels
+
+    def reset(self):
+        self._cur = 0
+
+    def next(self):
+        from .ndarray.sparse import CSRNDArray
+        n = len(self._rows)
+        if self._cur >= n:
+            raise StopIteration
+        end = self._cur + self.batch_size
+        idx = list(range(self._cur, min(end, n)))
+        pad = 0
+        if end > n:
+            if not self._round_batch or not idx:
+                if len(idx) < self.batch_size:
+                    raise StopIteration
+            pad = end - n
+            idx += idx[-1:] * pad
+        indptr = [0]
+        cols, vals = [], []
+        for i in idx:
+            ci, cv = self._rows[i]
+            cols.extend(ci.tolist())
+            vals.extend(cv.tolist())
+            indptr.append(len(cols))
+        data = CSRNDArray(nd_array(np.asarray(vals, np.float32)),
+                          nd_array(np.asarray(cols, np.int32)),
+                          nd_array(np.asarray(indptr, np.int32)),
+                          (self.batch_size, self._feat_dim))
+        labels = np.asarray([self._labels[i] for i in idx], np.float32)
+        self._cur = end
+        return DataBatch([data], [nd_array(labels)], pad=pad,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)

@@ -3,9 +3,12 @@ mxnet_tpu/module/base_module.py: `fit` :175, `score` :100, `predict` :145,
 `forward_backward` :94, `init_params` :381; reference:
 python/mxnet/module/base_module.py).
 
-The fit loop keeps the JAX package's one-batch lookahead (the last batch
-is known as such before its callbacks run) without its background
-prefetch thread, which waits with the record iterators (ROADMAP A7); its
+The fit loop is the JAX package's (`_run_train_epoch` :235-260): a
+background thread pulls batches from the training iterator and stages
+each on the module's device (`parallel.prefetch.DevicePrefetcher` over
+`stage_databatch`, depth 2, through pinned memory on a side stream),
+and a one-batch lookahead lets `prepare()` see batch k+1 while batch k
+trains and marks the last batch as such before its callbacks run. Its
 step timer, numerics guard and preemption boundary wait for the
 operational planes (ROADMAP A9).
 """
@@ -235,36 +238,54 @@ class BaseModule:
     def _run_train_epoch(self, train_data, epoch, eval_metric, monitor,
                          batch_end_callback, sparse_row_id_fn):
         """One epoch of the fit loop, with one-batch lookahead: prepare()
-        sees batch k+1 before batch k runs, and the last batch is known
-        as such before its callbacks run."""
+        sees batch k+1 while the device still works on k, and the last
+        batch is known as such before its callbacks run."""
+        from ..parallel.prefetch import DevicePrefetcher, stage_databatch
+
+        ctxs = getattr(self, "_context", None) or []
+        dev = ctxs[0].torch_device if len(ctxs) == 1 else None
+        # host-to-device double buffering: a background thread pulls and
+        # stages upcoming batches (src/io/iter_prefetcher.h wraps every
+        # training iterator in the reference)
+        staged = DevicePrefetcher(
+            iter(train_data),
+            (lambda b: stage_databatch(b, dev)) if dev is not None
+            else None, depth=2, device=dev)
         final_metrics = []
-        batches = iter(train_data)
-        upcoming = next(batches, None)
-        nbatch = 0
-        while upcoming is not None:
-            batch = upcoming
-            upcoming = next(batches, None)
-            is_last = upcoming is None
-            if upcoming is not None:
-                self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
-            if monitor is not None:
-                monitor.tic()
-            self.forward_backward(batch)
-            self.update()
-            if isinstance(batch, list):  # pre-sliced multi-device form
-                self.update_metric(eval_metric, [b.label for b in batch],
-                                   pre_sliced=True)
-            else:
-                self.update_metric(eval_metric, batch.label)
-            if monitor is not None:
-                monitor.toc_print()
-            if is_last:
-                # read before batch callbacks, which may reset metrics
-                final_metrics = eval_metric.get_name_value()
-            for cb in _as_list(batch_end_callback):
-                cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
-                                 eval_metric=eval_metric, locals=locals()))
-            nbatch += 1
+        try:
+            pending = next(staged, None)     # batch waiting to be processed
+            nbatch = 0
+            while pending is not None:
+                batch = pending
+                upcoming = next(staged, None)
+                is_last = upcoming is None
+                if upcoming is not None:
+                    self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
+                if monitor is not None:
+                    monitor.tic()
+                self.forward_backward(batch)
+                self.update()
+                if isinstance(batch, list):  # pre-sliced multi-device form
+                    self.update_metric(eval_metric,
+                                       [b.label for b in batch],
+                                       pre_sliced=True)
+                else:
+                    self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
+                if is_last:
+                    # read before batch callbacks, which may reset metrics
+                    final_metrics = eval_metric.get_name_value()
+                for cb in _as_list(batch_end_callback):
+                    cb(BatchEndParam(epoch=epoch, nbatch=nbatch,
+                                     eval_metric=eval_metric,
+                                     locals=locals()))
+                pending = upcoming
+                nbatch += 1
+        finally:
+            # an exception mid-epoch must not leave a worker thread pulling
+            # from the iterator that the next epoch resets
+            staged.close()
         return final_metrics
 
     # ------------------------------------------------------------------

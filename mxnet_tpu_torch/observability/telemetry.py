@@ -5,8 +5,9 @@ mxnet_tpu/observability/telemetry.py that the checkpoint needs:
 keys sorted, in the JAX package's record schema (the checkpoint's
 ``{"ts", "source": "resilience", "event": "ckpt_commit", "step",
 "step_time"}``), so `tools/telemetry_report.py` reads either package's
-stream. The step timer, the compile listener and the rest are not
-ported yet (ROADMAP A9).
+stream. Also the producer/consumer attribution of batch pulls
+(`mark_producer_thread` :79, `is_producer_thread` :88). The step timer,
+the compile listener and the rest are not ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -15,9 +16,23 @@ import os
 import threading
 import warnings
 
-__all__ = ["emit", "stream_path"]
+__all__ = ["emit", "is_producer_thread", "mark_producer_thread",
+           "stream_path"]
 
 _lock = threading.Lock()
+_thread_role = threading.local()
+
+
+def mark_producer_thread():
+    """Tag the calling thread as an input-pipeline producer (a prefetch
+    worker): its batch pulls overlap the consumer's compute, so the
+    iterators count them in ``io.batch_assemble.seconds``, not in the
+    consumer's ``io.batch_wait.seconds``."""
+    _thread_role.producer = True
+
+
+def is_producer_thread():
+    return getattr(_thread_role, "producer", False)
 _stream = {"path": None, "file": None, "warned": False}
 
 

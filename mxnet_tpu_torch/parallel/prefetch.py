@@ -13,7 +13,9 @@ item, and every staged tensor is marked as used on the consumer's stream
 to the side stream while the consumer's kernels still read it.
 
 The time the consumer blocks on the queue feeds the same histogram as
-`io.DataIter`'s own waits, ``io.batch_wait.seconds``.
+`io.DataIter`'s own waits, ``io.batch_wait.seconds``; the worker thread
+is marked a producer, so its own pulls from a DataIter count in
+``io.batch_assemble.seconds`` instead.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from ..context import resolve_device
 from ..ndarray import NDArray
 from ..observability import registry as _obs
+from ..observability.telemetry import mark_producer_thread
 
 __all__ = ["DevicePrefetcher", "stage_databatch", "to_device"]
 
@@ -101,6 +104,7 @@ class DevicePrefetcher:
         return staged, ready
 
     def _worker(self):
+        mark_producer_thread()
         try:
             for item in self._source:
                 staged = self._staged(item)

@@ -247,6 +247,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1059,14 +1060,11 @@ def serve(dev, card):
     # oracle: the same prompts one at a time on an engine of the same
     # shapes (serve_bench's `parity`)
     seq_engine = DecodeEngine(blk, max_slots=SLOTS, device=dev, name="seq")
-    for prompt, got in zip(prompts, outs):
-        toks = [seq_engine.prefill(prompt, 0)]
-        while len(toks) < NEW_TOKENS:
-            toks.append(int(seq_engine.step()[0]))
-        seq_engine.retire(0)
-        if not np.array_equal(np.asarray(toks, np.int32), got):
+    oracle = sequential_tokens(seq_engine, prompts)
+    for prompt, got, toks in zip(prompts, outs, oracle):
+        if not np.array_equal(toks, got):
             fail("prompt of %d tokens: batched %s != sequential %s"
-                 % (len(prompt), list(got), toks))
+                 % (len(prompt), list(got), list(toks)))
 
     # one whole-batch step with every slot active, timed alone
     seq_engine.reset()
@@ -1103,7 +1101,23 @@ def serve(dev, card):
          setup_s=setup_s, launches=launches,
          tokens_identical_to_sequential=True,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return launches
+    return dict(launches=launches, blk=blk, prompts=prompts, oracle=oracle,
+                tok_s=total / wall)
+
+
+def sequential_tokens(engine, prompts, new_tokens=None):
+    """Greedy tokens of each prompt decoded alone in slot 0 of `engine`
+    (int32 arrays; NEW_TOKENS of them unless `new_tokens`): the oracle
+    of batched decoding."""
+    new_tokens = new_tokens or NEW_TOKENS
+    out = []
+    for prompt in prompts:
+        toks = [engine.prefill(prompt, 0)]
+        while len(toks) < new_tokens:
+            toks.append(int(engine.step()[0]))
+        engine.retire(0)
+        out.append(np.asarray(toks, np.int32))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3536,13 +3550,13 @@ def _dist_worker():
     return torch_dist_worker
 
 
-def _free_port():
-    import socket
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def _init_world_of_one():
+    """A one-process group: the store binds a free port itself (port 0)
+    and publishes it in a file, so no port is probed and closed first."""
+    import tempfile
+    from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+    init_distributed("127.0.0.1:0", 1, 0, port_file=os.path.join(
+        tempfile.mkdtemp(prefix="rendezvous"), "port"))
 
 
 def dist_small(dev, card):
@@ -3679,11 +3693,10 @@ def dist_train(dev, card, gluon_img_s):
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.observability import registry
-    from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
     from mxnet_tpu_torch.resilience import numerics
     gc.collect()
     torch.cuda.empty_cache()
-    init_distributed("127.0.0.1:%d" % _free_port(), 1, 0)
+    _init_world_of_one()
     tmp = tempfile.mkdtemp(prefix="dist_train")
     torch.backends.cudnn.deterministic = True
     try:
@@ -3874,11 +3887,10 @@ def dist_sharded(dev, card, ref):
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.gluon.nn import BatchNorm
     from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel
-    from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
     from mxnet_tpu_torch.resilience import numerics
     gc.collect()
     torch.cuda.empty_cache()
-    init_distributed("127.0.0.1:%d" % _free_port(), 1, 0)
+    _init_world_of_one()
     tol = DIST_SHARDED
     torch.backends.cudnn.deterministic = True
     runs, launches = {}, {}
@@ -4593,6 +4605,380 @@ def record_module(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: the rest of serving — ModelServer of both kinds, the module
+# predict path, ModelRegistry and the HTTP Gateway
+# ---------------------------------------------------------------------------
+MODEL_SERVER = dict(clients=16, rounds=4, bucket=32, bf16_tol=2e-2,
+                    mixed=(1, 3, 7, 12, 20, 31))
+
+
+def _client_threads(n, work):
+    """Run work(i) on n threads started together; the wall seconds from
+    the first start to the last finish, and work's results by i."""
+    out, errors = [None] * n, []
+    gate = threading.Barrier(n + 1)
+
+    def run(i):
+        gate.wait()
+        try:
+            out[i] = work(i)
+        except BaseException as err:  # noqa: BLE001 — reported below
+            errors.append(err)
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("model_server: a client failed: %r" % (errors[0],))
+    return wall, out
+
+
+def _http(url, payload=None, timeout=300):
+    """(status, JSON body) of a GET, or of a POST of `payload`."""
+    import urllib.error
+    import urllib.request
+    req = url if payload is None else urllib.request.Request(
+        url, data=json.dumps(payload).encode("utf-8"),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read().decode("utf-8"))
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read().decode("utf-8"))
+
+
+def _http_stream(url, payload, timeout=300):
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=json.dumps(payload).encode("utf-8"),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return [json.loads(line) for line in
+                r.read().decode("utf-8").splitlines()]
+
+
+def model_server(ops, dev, card, served):
+    """The serving stack a user runs, on the card.
+
+    (a) `ModelServer` over a `DecodeEngine` at `serve`'s configuration
+    (GPT-2-small width, `serve`'s seeded weights, 8 slots, its 8 prompts,
+    32 new tokens), in fp32 and in bf16, each driven by 16 client threads
+    at once (thread i submits prompt i % 8): fp32 tokens identical to
+    `serve`'s sequential decoding, bf16 tokens identical to a sequential
+    bf16 engine; the profiler sees the flash-attention and LayerNorm
+    kernels under the server. (b) `InferenceEngine.from_block` over
+    ResNet-50 v1 (train's net, seeded, predict mode) at 224 px NHWC bf16,
+    buckets up to 32, behind `ModelServer` from 16 client threads: 32-row
+    responses bit-identical to `engine.infer` at that bucket, mixed sizes
+    within 2e-2 of it (scaled by its largest magnitude), a 1..32 sweep
+    after warmup builds nothing, `Deadline(0)` is refused, and a SIGTERM
+    under `handle_signals` drains. (c) A Module bound for prediction
+    answers through its frozen engine what its executor answers; a
+    `Gateway` over a `ModelRegistry` of (a) and (b) on 127.0.0.1:0."""
+    import gc
+    import signal
+    import tempfile
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.observability import registry as obs
+    from mxnet_tpu_torch.resilience import Deadline, DeadlineExceeded
+    from mxnet_tpu_torch.serving import (DecodeEngine, Gateway,
+                                         InferenceEngine, ModelRegistry,
+                                         ModelServer, RequestRejected)
+    cfg = MODEL_SERVER
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the device lease the servers and the gateway hold on a card: in a
+    # directory of this run's own
+    lease_dir = tempfile.mkdtemp(prefix="model_server_lease")
+    os.environ["MXTPU_LEASE_PATH"] = os.path.join(lease_dir, "dev.lease")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    blk, prompts, oracle = served["blk"], served["prompts"], served["oracle"]
+    # bf16 is held to bf16: a sequential bf16 engine's tokens
+    seq_bf16 = DecodeEngine(blk, max_slots=SLOTS, dtype="bf16", device=dev,
+                            name="seq_bf16")
+    oracle_bf16 = sequential_tokens(seq_bf16, prompts)
+    del seq_bf16
+    mx.random.seed(0)
+    with mx.name.NameManager():
+        net = resnet50_v1(classes=1000, layout="NHWC", device=dev)
+    net.initialize(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                  magnitude=2))
+    rng = np.random.RandomState(5)
+    xs = [rng.randn(cfg["bucket"], IMG, IMG, 3).astype(np.float32)
+          for _ in range(4)]
+    builds = obs.REGISTRY.get("serving.engine.compiles")
+    rec = dict(phase="model_server", card=card)
+
+    # the main path, with every launch counter at 0 just before it
+    ops.reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # (a) the decode kind
+    decode = {}
+    for dtype, want in (("fp32", oracle), ("bf16", oracle_bf16)):
+        engine = DecodeEngine(blk, max_slots=SLOTS, dtype=dtype, device=dev,
+                              name="gpt2_%s" % dtype)
+        srv = ModelServer(engine, max_new_tokens=NEW_TOKENS,
+                          warmup=True).start()
+        handles = [None] * cfg["clients"]
+
+        def client(i, srv=srv, handles=handles):
+            handles[i] = srv.submit(prompts[i % len(prompts)])
+            return handles[i].result(timeout=600)
+        wall, toks = _client_threads(cfg["clients"], client)
+        for i, got in enumerate(toks):
+            if not np.array_equal(np.asarray(got, np.int32),
+                                  want[i % len(prompts)]):
+                fail("model_server %s: client %d's tokens %s != "
+                     "sequential %s" % (dtype, i, list(got),
+                                        list(want[i % len(prompts)])))
+        seen = device_launches(
+            lambda srv=srv: srv.generate(prompts[0], max_new_tokens=2,
+                                         timeout=300),
+            1, {"flash_attention": 12, "layer_norm": 50})
+        if not (seen["flash_attention"] and seen["layer_norm"]):
+            fail("model_server %s: the profiler saw %s under the server"
+                 % (dtype, seen))
+        stats = srv.stats()
+        if not srv.drain(timeout=300):
+            fail("model_server %s: the decode server did not drain" % dtype)
+        ttft = [h.ttft() * 1e3 for h in handles]
+        n_tok = sum(len(t) for t in toks)
+        decode[dtype] = dict(
+            clients=cfg["clients"], tokens=n_tok, wall_s=wall,
+            tok_s=n_tok / wall, ttft_ms_p50=percentile(ttft, 50),
+            ttft_ms_p95=percentile(ttft, 95),
+            tokens_identical_to_sequential=True,
+            profiled_generate_launches={
+                k: seen[k] for k in ("flash_attention", "layer_norm")},
+            lease_held=bool(stats["lease"] and stats["lease"]["held"]),
+            device_bytes=engine.device_bytes())
+        del srv, engine
+    rec["decode"] = decode
+    rec["serve_tok_s"] = served["tok_s"]
+
+    # (b) the bucketed kind
+    example = torch.zeros(1, IMG, IMG, 3, device=dev)
+    engine = InferenceEngine.from_block(
+        net, example, max_batch_size=cfg["bucket"], dtype="bf16",
+        name="resnet50")
+    conv0 = ops.launch_counts()["conv1x1_bn_stats"]
+    srv = ModelServer(engine, max_wait_ms=2.0, warmup=True).start()
+    warm = sum(builds.get(engine="resnet50", bucket=str(b))
+               for b in engine.buckets)
+    for n in range(1, cfg["bucket"] + 1):
+        out = srv.infer(xs[0][:n], timeout=300)[0]
+        if out.shape != (n, 1000) or not np.isfinite(out).all():
+            fail("model_server: %d rows gave %s" % (n, out.shape))
+    swept = sum(builds.get(engine="resnet50", bucket=str(b))
+                for b in engine.buckets)
+    if warm != len(engine.buckets) or swept != warm:
+        fail("model_server: %d graph builds after warmup, %d after the "
+             "1..32 sweep, want %d and no more" % (warm, swept,
+                                                   len(engine.buckets)))
+    rounds = cfg["rounds"]
+    wall, outs = _client_threads(cfg["clients"], lambda i: [
+        srv.infer(xs[(i + r) % len(xs)], timeout=300)[0]
+        for r in range(rounds)])
+    direct = [engine.infer(x)[0].asnumpy() for x in xs]
+    for i, got in enumerate(outs):
+        for r, o in enumerate(got):
+            if o.tobytes() != direct[(i + r) % len(xs)].tobytes():
+                fail("model_server: a 32-row response differs from "
+                     "engine.infer at bucket 32 by %g" % np.abs(
+                         o - direct[(i + r) % len(xs)]).max())
+    mixed = cfg["mixed"]
+    _, mouts = _client_threads(len(mixed), lambda i: srv.infer(
+        xs[1][:mixed[i]], timeout=300)[0])
+    mixed_err = 0.0
+    for n, o in zip(mixed, mouts):
+        ref = engine.infer(xs[1][:n])[0].asnumpy()
+        mixed_err = max(mixed_err, float(np.abs(o - ref).max()
+                                         / np.abs(ref).max()))
+    if mixed_err > cfg["bf16_tol"]:
+        fail("model_server: mixed-size responses %g from engine.infer "
+             "(tol %g)" % (mixed_err, cfg["bf16_tol"]))
+    try:
+        srv.infer(xs[0][:1], deadline=Deadline(0.0), timeout=60)
+        fail("model_server: Deadline(0) was served")
+    except DeadlineExceeded:
+        pass
+    # the engine alone at b32 (a device batch: no host copy), by events,
+    # and its device time by the profiler
+    x32 = torch.from_numpy(xs[0]).to(dev)
+    direct_ms = cuda_ms(lambda: engine.infer(x32), iters=10)
+    dev_ms = device_ms(lambda: engine.infer(x32), n=2, tries=20)
+    batches = cfg["clients"] * rounds
+    img_s = batches * cfg["bucket"] / wall
+    stats = srv.stats()
+    # SIGTERM under handle_signals: in flight finishes, new work refused
+    with srv.handle_signals():
+        flight = [srv.submit(xs[k % len(xs)]) for k in range(8)]
+        signal.raise_signal(signal.SIGTERM)
+        t0 = time.monotonic()
+        while not srv.draining and time.monotonic() - t0 < 30:
+            time.sleep(0.005)
+        try:
+            srv.submit(xs[0][:1])
+            fail("model_server: a submit after SIGTERM was accepted")
+        except RequestRejected:
+            pass
+        done = [h.result(timeout=300)[0].shape for h in flight]
+        drained = srv.drain(timeout=300)
+    if not drained or done != [(cfg["bucket"], 1000)] * 8:
+        fail("model_server: SIGTERM drain %s, in-flight results %s"
+             % (drained, done))
+    conv1x1 = ops.launch_counts()["conv1x1_bn_stats"] - conv0
+    rec["bucketed"] = dict(
+        model="ResNet-50 v1, NHWC, 224 px, bf16, predict mode",
+        buckets=list(engine.buckets), clients=cfg["clients"],
+        batches=batches, wall_s=wall, img_s=img_s,
+        engine_b32_img_s=cfg["bucket"] / direct_ms * 1e3,
+        engine_b32_ms=direct_ms, device_ms_b32=dev_ms,
+        device_busy_share=dev_ms * batches / (wall * 1e3)
+        if dev_ms else None,
+        responses_bit_identical_to_infer=True,
+        mixed_sizes_max_rel_err=mixed_err, mixed_tol=cfg["bf16_tol"],
+        builds_after_warmup=swept - warm,
+        deadline0_refused=True, sigterm_drained=True,
+        conv1x1_bn_stats_launches=conv1x1,
+        lease_held=bool(stats["lease"] and stats["lease"]["held"]),
+        request_latency_p50_s=stats["request_latency_p50_s"],
+        request_latency_p95_s=stats["request_latency_p95_s"],
+        device_bytes=engine.device_bytes())
+    del srv
+
+    # (c) Module's predict path through its frozen engine
+    resnet_v1_symbol = _load_script(RESNET_SYMBOL).resnet_v1_symbol
+    with mx.name.NameManager():
+        sym = resnet_v1_symbol(mx, units=(1, 1), filters=(16, 32, 64),
+                               num_classes=10)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    mod.bind([("data", (16, 32, 32, 3))], for_training=False)
+    mx.random.seed(3)
+    mod.init_params(mx.init.Xavier(magnitude=2.0))
+    xb = mx.io.DataBatch([mx.nd.array(
+        rng.randn(16, 32, 32, 3).astype(np.float32), ctx=mx.gpu(0))])
+    mod.forward(xb, is_train=False)
+    via_engine = mod.get_outputs()[0].asnumpy()
+    if not mod._serving_engine_obj:
+        fail("model_server: Module predict did not freeze an engine")
+    os.environ["MXTPU_SERVING_ENGINE"] = "0"
+    try:
+        mod.forward(xb, is_train=False)
+        via_executor = mod.get_outputs()[0].asnumpy()
+    finally:
+        del os.environ["MXTPU_SERVING_ENGINE"]
+    if via_engine.tobytes() != via_executor.tobytes():
+        fail("model_server: Module predict through the engine differs "
+             "from the executor by %g" % np.abs(via_engine -
+                                                via_executor).max())
+    rec["module_predict_equals_executor"] = True
+
+    # the Gateway over a ModelRegistry of both kinds
+    gate = threading.Event()
+
+    def gated(build):
+        def builder():
+            gate.wait(600)
+            return build()
+        return builder
+    reg = ModelRegistry()
+    reg.register("resnet50", gated(lambda: InferenceEngine.from_block(
+        net, example, max_batch_size=cfg["bucket"], dtype="bf16",
+        name="gw_resnet50")), eager=True, max_wait_ms=2.0)
+    reg.register("gpt2", gated(lambda: DecodeEngine(
+        blk, max_slots=SLOTS, device=dev, name="gw_gpt2")), eager=True,
+        max_new_tokens=NEW_TOKENS)
+    gw = Gateway(reg, port=0, device=dev)
+    boot = threading.Thread(target=gw.start, daemon=True)
+    boot.start()
+    t0 = time.monotonic()
+    while not gw._started and time.monotonic() - t0 < 60:
+        time.sleep(0.01)
+    early = (_http(gw.url + "/readyz")[0], _http(gw.url + "/healthz")[0])
+    gate.set()
+    boot.join(600)
+    ready = _http(gw.url + "/readyz")
+    if early != (503, 200) or ready[0] != 200 or \
+            sorted(ready[1]["resident"]) != ["gpt2", "resnet50"]:
+        fail("model_server: /readyz, /healthz during the eager warm-ups "
+             "%s, after %s" % (early, ready))
+    try:
+        x1 = xs[2][:1]
+        st, predicted = _http(gw.url + "/v1/models/resnet50:predict",
+                              {"inputs": x1.tolist()})
+        direct1 = reg.get("resnet50").engine.infer(x1)[0].asnumpy()
+        got1 = np.asarray(predicted["outputs"][0], np.float32) \
+            if st == 200 else None
+        if got1 is None or got1.tobytes() != direct1.tobytes():
+            fail("model_server: /predict %s is not byte-identical to "
+                 "infer" % st)
+        st, body = _http(gw.url + "/v1/models/gpt2:generate",
+                         {"tokens": prompts[0].tolist()})
+        lines = _http_stream(gw.url + "/v1/models/gpt2:generate",
+                             {"tokens": prompts[0].tolist(),
+                              "stream": True})
+        streamed = [line["token"] for line in lines if "token" in line]
+        if st != 200 or body["tokens"] != streamed or \
+                streamed != oracle[0].tolist():
+            fail("model_server: /generate %s: %s, streamed %s, sequential "
+                 "%s" % (st, body, streamed, oracle[0].tolist()))
+        sizes = {m: reg.stats()["models"][m]["bytes"]
+                 for m in ("resnet50", "gpt2")}
+        small, big = sorted(sizes.values())
+        reloads0 = reg.stats()["reloads"]
+        # only the smaller model fits: each load evicts the other, and the
+        # larger one stays resident only while it is the one just loaded
+        reg.set_budget(budget_bytes=(small + big) // 2)
+        resident = [reg.resident()]
+        st1, again1 = _http(gw.url + "/v1/models/resnet50:predict",
+                            {"inputs": x1.tolist()})
+        resident.append(reg.resident())
+        st2, again2 = _http(gw.url + "/v1/models/gpt2:generate",
+                            {"tokens": prompts[0].tolist()})
+        resident.append(reg.resident())
+        reloads = reg.stats()["reloads"] - reloads0
+        expect = [[] if sizes["gpt2"] > sizes["resnet50"] else ["gpt2"],
+                  ["resnet50"], ["gpt2"]]
+        if resident != expect or reloads != 2 or \
+                (st1, st2) != (200, 200) or \
+                again1["outputs"] != predicted["outputs"] or \
+                again2["tokens"] != oracle[0].tolist():
+            fail("model_server: under a budget between %s, resident %s, "
+                 "reloads %d, answers %s %s" % (sizes, resident, reloads,
+                                                st1, st2))
+        reg.set_budget(budget_bytes=0)
+        gw_lease = bool(_http(gw.url + "/healthz")[1]["lease"])
+    finally:
+        gate.set()
+        closed = gw.close(timeout=300)
+    if not closed:
+        fail("model_server: the gateway did not drain")
+    rec["gateway"] = dict(
+        readyz_during_warmup=early[0], healthz_during_warmup=early[1],
+        predict_byte_identical=True, generate_stream_identical=True,
+        budget_bytes=(small + big) // 2, model_bytes=sizes,
+        resident_under_budget=resident, reloads=reloads,
+        lease_held=gw_lease)
+    launches = ops.launch_counts()
+    rec["launches"] = launches
+    rec["phase_s"] = time.perf_counter() - t_phase
+    if not (launches["flash_attention"] and launches["layer_norm"]):
+        fail("model_server: launches %s" % launches)
+    torch.backends.cudnn.deterministic = deterministic
+    del os.environ["MXTPU_LEASE_PATH"]
+    emit(**rec)
+    return launches
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -4683,7 +5069,11 @@ def main():
 
     # phases 4, 5: the model
     small_model_check(dev)
-    launches = serve(dev, card)
+    served = serve(dev, card)
+    launches = served["launches"]
+    # phase 5b: the rest of serving, before the training phases, whose
+    # long profiles leave the profiler dropping records
+    server_launches = model_server(ops, dev, card, served)
 
     # phases 6, 7: training
     train_small(dev)
@@ -4741,15 +5131,18 @@ def main():
                       "record_train": record_launches["replays"][name],
                       "record_train_capture":
                           record_launches["capture"][name],
-                      "record_module": record_module_launches[name]}
+                      "record_module": record_module_launches[name],
+                      "model_server": server_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
+                             "model_server": server_launches["layer_norm"],
                              "nd_gpt": gpt_nd["launches"]["layer_norm"],
                              "gluon_layers": ln_gluon["launches"],
                              "gluon_layers_hybridized":
                                  hyb_layers["layer_norm"]}
     by_path["flash_attention"] = {
         "serve": launches["flash_attention"],
+        "model_server": server_launches["flash_attention"],
         "nd_flash": flash_nd["launches"],
         "nd_gpt": gpt_nd["launches"]["flash_attention"],
         "gluon_layers_hybridized": hyb_layers["flash_attention"]}

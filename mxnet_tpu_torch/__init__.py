@@ -33,7 +33,13 @@ and the record-file input pipeline: `recordio`, the native record loader
 (`_native`, built at first use under a file lock), `image` (alias `img`)
 with its augmenters and `ImageIter`, `io.ImageRecordIter` and the other
 file iterators, `image.ImageDetIter`, the record datasets and Module
-`fit`'s prefetching loop.
+`fit`'s prefetching loop; and the rest of serving: the bucketed
+`serving.InferenceEngine` (also Module's predict path),
+`serving.DynamicBatcher`, `serving.ModelServer` of both kinds with its
+health plane, `serving.ModelRegistry` and the HTTP `serving.Gateway`,
+over the observability and resilience planes they need (spans and
+traces, the memory ledger, goodput, ``/metricsz``, the watchdog and the
+device lease).
 """
 from .base import MXNetError, __version__, getenv
 from .context import (Context, DeviceUnreachable, cpu, current_context,

@@ -26,7 +26,14 @@ _local = threading.local()
 
 
 class DeviceUnreachable(MXNetError):
-    """The requested device does not exist on this machine."""
+    """The requested device does not exist on this machine, or did not
+    answer within a watchdog's deadline (`resilience.watchdog`). The
+    message carries the lease-holder diagnostics when a watchdog has
+    them; `.diagnostics` holds the dump alone for machine consumers."""
+
+    def __init__(self, msg, diagnostics=None):
+        super().__init__(msg + ("\n" + diagnostics if diagnostics else ""))
+        self.diagnostics = diagnostics
 
 
 class Context:

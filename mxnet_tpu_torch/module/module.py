@@ -8,9 +8,13 @@ A Module binds one executor on its context (the card unless the caller
 gives `mx.cpu()`), keeps host copies of the parameters for checkpoints,
 and updates through `model._update_params`: one `update_all` of the
 `FusedUpdater`, so an SGD step is one launch of the `fused_sgd_momentum`
-kernel on the card. The JAX package's predict-only fast path through a
-frozen serving engine waits for the serving slice (ROADMAP A8): a
-module bound `for_training=False` forwards through its executor.
+kernel on the card. A module bound `for_training=False` predicts through
+a frozen `serving.InferenceEngine` (JAX `module/module.py:124`,
+:426-478): its padding buckets absorb ragged tail batches instead of a
+rebind, and the outputs land in the executor, so `get_outputs` and
+`update_metric` are none the wiser. ``MXTPU_SERVING_ENGINE=0``, a
+monitor callback, or a batch whose non-batch dims changed take the
+executor path.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import json
 
 import torch
 
-from ..base import MXNetError
+from ..base import MXNetError, getenv
 from ..context import Context, cpu, current_context
 from ..initializer import InitDesc, Uniform, create as _create_init
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
@@ -146,6 +150,10 @@ class Module(BaseModule):
         self._grad_req = None
         self._exec_group = None
         self._data_shapes = self._label_shapes = None
+        # predict-only fast path: a serving.InferenceEngine frozen from
+        # this module, rebuilt lazily whenever params/binding change
+        # (False: the freeze failed; skip it until they change)
+        self._serving_engine_obj = None
 
     # -- checkpointing --------------------------------------------------
     @staticmethod
@@ -237,6 +245,7 @@ class Module(BaseModule):
 
         self.params_initialized = True
         self._params_dirty = False
+        self._serving_engine_obj = None
         self._exec_group.set_params(self._arg_params, self._aux_params,
                                     allow_extra=allow_extra)
 
@@ -258,6 +267,7 @@ class Module(BaseModule):
                                     allow_extra=allow_extra)
         self._params_dirty = True
         self.params_initialized = True
+        self._serving_engine_obj = None
 
     # -- binding --------------------------------------------------------
     def bind(self, data_shapes, label_shapes=None, for_training=True,
@@ -312,6 +322,7 @@ class Module(BaseModule):
         self.binded = False
         self._exec_group = None
         self._data_shapes = self._label_shapes = None
+        self._serving_engine_obj = None
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind for new batch shapes (reference: module.py:452)."""
@@ -437,10 +448,61 @@ class Module(BaseModule):
 
     def forward(self, data_batch, is_train=None):
         assert self.binded and self.params_initialized
+        if self._forward_via_engine(data_batch, is_train):
+            return
         change = self._batch_shape_change(data_batch)
         if change is not None:
             self.reshape(*change)
         self._exec_group.forward(data_batch, is_train)
+
+    def _serving_engine(self):
+        """The serving.InferenceEngine frozen from this module's symbol
+        and current params (rebuilt after param or binding changes)."""
+        eng = self._serving_engine_obj
+        if not eng:
+            from ..serving import InferenceEngine
+            eng = InferenceEngine.from_module(self, name="module")
+            self._serving_engine_obj = eng
+        return eng
+
+    def _forward_via_engine(self, data_batch, is_train):
+        """Predict-only fast path: a module bound `for_training=False`
+        forwards through its frozen InferenceEngine and writes the
+        outputs into the executor. False (the caller takes the executor
+        path) when disabled by ``MXTPU_SERVING_ENGINE=0``, when a
+        monitor is installed, or when the batch does not fit the frozen
+        signature."""
+        if self.for_training or is_train:
+            return False
+        if not getenv("MXTPU_SERVING_ENGINE", True):
+            return False
+        exec_ = self._exec_group.exec_
+        if exec_._monitor_callback is not None:
+            return False
+        batch = data_batch[0] if isinstance(data_batch, list) \
+            else data_batch
+        data = batch.data
+        if data is None or len(data) != len(self._data_names):
+            return False
+        n = None
+        for arr, desc in zip(data, self._data_shapes):
+            shp = tuple(arr.shape)
+            if not shp or shp[1:] != tuple(desc.shape)[1:]:
+                return False          # non-batch dims changed: rebind
+            n = shp[0] if n is None else n
+            if shp[0] != n:
+                return False
+        if self._serving_engine_obj is False:
+            return False      # the freeze failed before; don't retry
+        try:
+            eng = self._serving_engine()
+        except MXNetError:
+            self._serving_engine_obj = False
+            return False
+        if n > eng.max_batch_size:
+            return False
+        exec_.outputs = eng.infer(dict(zip(self._data_names, data)))
+        return True
 
     def backward(self, out_grads=None):
         assert self.binded and self.params_initialized

@@ -1,5 +1,7 @@
 """Observability (counterpart of mxnet_tpu/observability/): the metrics
-registry."""
+registry, the telemetry stream, spans and distributed traces, the device
+memory ledger, goodput, and the ``/metricsz`` + ``/debugz`` endpoint
+(`httpz`)."""
 from . import registry
 from .registry import REGISTRY, counter, gauge, histogram
 

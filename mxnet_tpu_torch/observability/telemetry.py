@@ -6,8 +6,10 @@ keys sorted, in the JAX package's record schema (the checkpoint's
 ``{"ts", "source": "resilience", "event": "ckpt_commit", "step",
 "step_time"}``), so `tools/telemetry_report.py` reads either package's
 stream. Also the producer/consumer attribution of batch pulls
-(`mark_producer_thread` :79, `is_producer_thread` :88). The step timer,
-the compile listener and the rest are not ported yet (ROADMAP A9).
+(`mark_producer_thread` :79, `is_producer_thread` :88), and
+`stream_enabled` (:103) and `close_stream` (:150) for the serving
+records. The step timer, the compile listener and the rest are not
+ported yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ import os
 import threading
 import warnings
 
-__all__ = ["emit", "is_producer_thread", "mark_producer_thread",
-           "stream_path"]
+__all__ = ["close_stream", "emit", "is_producer_thread",
+           "mark_producer_thread", "stream_enabled", "stream_path"]
 
 _lock = threading.Lock()
 _thread_role = threading.local()
@@ -39,6 +41,10 @@ _stream = {"path": None, "file": None, "warned": False}
 def stream_path():
     """The ``MXTPU_TELEMETRY`` destination, or None."""
     return os.environ.get("MXTPU_TELEMETRY") or None
+
+
+def stream_enabled():
+    return stream_path() is not None
 
 
 def _stream_file():
@@ -80,3 +86,14 @@ def emit(record):
         return False
     return True
 
+
+def close_stream():
+    """Close the stream (the next `emit` reopens it in append mode)."""
+    with _lock:
+        if _stream["file"] is not None:
+            try:
+                _stream["file"].close()
+            except OSError:
+                pass
+        _stream["path"], _stream["file"] = None, None
+        _stream["warned"] = False

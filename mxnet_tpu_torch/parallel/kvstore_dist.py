@@ -39,8 +39,15 @@ result is bit-identical. At one process no collective runs; a
 compressing store still round-trips through the quantizer, so training
 does not depend on the process count.
 
+A coordinator address with port 0 (``127.0.0.1:0``) lets rank 0's store
+take a free port from the OS: rank 0 publishes the port it bound in a
+port file (`port_file`, or ``MXTPU_DIST_PORT_FILE``) that the other
+ranks wait for, so no process has to probe a port and close it before
+rank 0 binds it (another process can take a probed port in that gap).
+An explicit ``host:port`` behaves as JAX's.
+
 Timeouts, as JAX's: ``MXTPU_DIST_INIT_TIMEOUT_S`` bounds the rendezvous
-alone; `barrier` waits at most ``MXTPU_BARRIER_TIMEOUT_S`` (default 600)
+alone (the wait for a published port included); `barrier` waits at most ``MXTPU_BARRIER_TIMEOUT_S`` (default 600)
 and a bucket's collective at most ``MXTPU_WATCHDOG_COLLECTIVE_S`` (default
 0: the group's own timeout), then raises `DeadlineExceeded`.
 
@@ -65,6 +72,7 @@ from ..context import Context, resolve_device
 from ..kvstore import (KVStore, _key_value, _priority_order, _sum, _values)
 from ..observability import registry as _obs
 from ..resilience import numerics as _num
+from ..resilience.atomic import atomic_write
 from ..resilience.retry import (DeadlineExceeded, RetryPolicy,
                                 TransientError, retry_call)
 from .bucketing import (BUCKET_COUNT, BUCKET_FILL, BUCKET_KEYS,
@@ -119,10 +127,32 @@ def _backend(device):
     return backend
 
 
+def _read_port(port_file, timeout_s):
+    """The port rank 0 published in `port_file`, waiting for it at most
+    `timeout_s` seconds."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        try:
+            with open(port_file) as f:
+                text = f.read().strip()
+            if text:
+                return int(text)
+        except (OSError, ValueError):
+            pass
+        if time.monotonic() >= deadline:
+            raise TimeoutError("no coordinator port published in %s "
+                               "within %gs" % (port_file, timeout_s))
+        time.sleep(0.02)
+
+
 def init_distributed(coordinator_address=None, num_processes=None,
-                     process_id=None):
+                     process_id=None, port_file=None):
     """Join the process group (the DMLC scheduler rendezvous's analog).
     A no-op when the group exists or no coordinator is configured.
+
+    With port 0 in `coordinator_address`, rank 0's store binds a free
+    port and writes it into `port_file` (``MXTPU_DIST_PORT_FILE``),
+    which every other rank waits for and reads.
 
     The rendezvous is a `TCPStore` at the coordinator's address (rank 0
     serves it). ``MXTPU_DIST_INIT_TIMEOUT_S`` (when set) bounds each
@@ -157,12 +187,32 @@ def init_distributed(coordinator_address=None, num_processes=None,
         kwargs["device_id"] = device
     url = urllib.parse.urlparse("tcp://%s" % coordinator_address)
     world, rank = int(num_processes), int(process_id)
+    if url.port == 0:
+        port_file = port_file or env.get("MXTPU_DIST_PORT_FILE")
+        if not port_file:
+            raise MXNetError(
+                "coordinator %r has port 0: give a port_file (or "
+                "MXTPU_DIST_PORT_FILE) through which rank 0 publishes the "
+                "port it binds" % coordinator_address)
 
     def _attempt():
-        # multi_tenant: a retry in this process reuses rank 0's server
-        store = dist.TCPStore(url.hostname, url.port, world,
-                              is_master=rank == 0,
-                              timeout=store_timeout, multi_tenant=True)
+        if url.port != 0:
+            # multi_tenant: a retry in this process reuses rank 0's server
+            store = dist.TCPStore(url.hostname, url.port, world,
+                                  is_master=rank == 0,
+                                  timeout=store_timeout, multi_tenant=True)
+        elif rank == 0:
+            # bind first, publish the bound port, then let the group's
+            # own rendezvous wait for the peers
+            store = dist.TCPStore(url.hostname, 0, world, is_master=True,
+                                  timeout=store_timeout,
+                                  wait_for_workers=False)
+            with atomic_write(port_file, "w") as f:
+                f.write(str(store.port))
+        else:
+            port = _read_port(port_file, store_timeout.total_seconds())
+            store = dist.TCPStore(url.hostname, port, world,
+                                  is_master=False, timeout=store_timeout)
         dist.init_process_group(backend, store=store, world_size=world,
                                 rank=rank, **kwargs)
 

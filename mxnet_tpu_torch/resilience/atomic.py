@@ -1,5 +1,5 @@
 """Crash-consistent host-side file writes (a copy of
-mxnet_tpu/resilience/atomic.py's `atomic_write`).
+mxnet_tpu/resilience/atomic.py's `atomic_write` and `exclusive_create`).
 
 The bytes land in a temp file in the *same directory* (same filesystem,
 so the rename cannot degrade to copy+delete) and `os.replace` swings the
@@ -12,7 +12,7 @@ import contextlib
 import os
 import tempfile
 
-__all__ = ["atomic_write"]
+__all__ = ["atomic_write", "exclusive_create"]
 
 
 @contextlib.contextmanager
@@ -36,3 +36,32 @@ def atomic_write(path, mode="wb"):
         except OSError:
             pass
         raise
+
+
+def exclusive_create(path, data):
+    """Atomically create `path` with `data` iff it does not already
+    exist (O_CREAT|O_EXCL — the lease-acquire primitive: on a local
+    filesystem exactly one of N racing processes wins the create).
+    Returns True on success, False when the path already exists. A
+    write failure after a successful create removes the file before
+    re-raising, so a failed acquire never leaves a husk that blocks
+    every later one."""
+    path = os.fspath(path)
+    try:
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_EXCL, 0o644)
+    except FileExistsError:
+        return False
+    try:
+        if isinstance(data, str):
+            data = data.encode("utf-8")
+        os.write(fd, data)
+        os.fsync(fd)
+    except BaseException:
+        os.close(fd)
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        raise
+    os.close(fd)
+    return True

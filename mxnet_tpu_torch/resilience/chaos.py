@@ -1,8 +1,9 @@
 """Seeded, env-driven fault injection (a copy of the part of
-mxnet_tpu/resilience/chaos.py that the checkpoint needs: `parse_spec`
-:116, `_Site` :146, `_rank_spec` :196, `configure` :213, `chaos_point`
-:257). `reset`, `trip_count` and the array-corruption sites
-(`corrupt_point`) are not ported yet (ROADMAP A9).
+mxnet_tpu/resilience/chaos.py that the checkpoint and serving need:
+`parse_spec` :116, `_Site` :146, `_rank_spec` :196, `configure` :213,
+`reset` :236, `chaos_point` :257, `trip_count` :338). The
+array-corruption sites (`corrupt_point`) are not ported yet (ROADMAP
+A9).
 
 Spec grammar (``MXTPU_CHAOS``)::
 
@@ -28,7 +29,9 @@ can arm one rank alone.
 Sites wired in the port: ``checkpoint.save`` (before a checkpoint's data
 is written; retried) and ``checkpoint.commit`` (after every rank's data,
 before the commit barrier and manifest: a rank killed there leaves a torn
-step). Each trip counts in ``chaos.injected{site}``. A `chaos_point` is
+step); serving's ``serving.infer``, ``engine.dispatch``,
+``serving.replica<k>.dispatch``, ``serving.decode``, ``gateway.admit``,
+``lease.acquire`` and ``memory.oom``, as in the JAX package. Each trip counts in ``chaos.injected{site}``. A `chaos_point` is
 one dict lookup when nothing is armed.
 """
 from __future__ import annotations
@@ -44,7 +47,7 @@ from ..observability import registry as _obs
 from .retry import TransientError
 
 __all__ = ["InjectedFailure", "InjectedFault", "chaos_point", "configure",
-           "parse_spec"]
+           "parse_spec", "reset", "trip_count"]
 
 INJECTED = _obs.counter("chaos.injected",
                         "Faults injected, by site (label site)")
@@ -162,6 +165,19 @@ def configure(spec=None, seed=None):
                 _state["prefix"].append((name[:-1], site))
             else:
                 _state["exact"][name] = site
+
+
+def reset():
+    """Disarm and forget; the next chaos_point re-reads the env."""
+    with _lock:
+        _state["exact"] = None
+        _state["prefix"] = []
+
+
+def trip_count(site):
+    """How many times `site` has actually tripped."""
+    sp = _lookup(site)
+    return 0 if sp is None else sp.trips
 
 
 def _lookup(site):

@@ -1,6 +1,6 @@
 """Retry with backoff, and deadlines (counterpart of
 mxnet_tpu/resilience/retry.py: `TransientError` :43, `RetryPolicy` :55,
-`retry_call` :81, `Deadline` :127).
+`retry_call` :81, `Deadline` :127, `run_with_deadline` :159).
 
 A `RetryPolicy` names the exceptions worth another attempt (`retry_on`,
 by default the explicit `TransientError` contract) and those that must
@@ -16,12 +16,13 @@ from __future__ import annotations
 
 import logging
 import random
+import threading
 import time
 
 from ..base import MXNetError, getenv
 
 __all__ = ["Deadline", "DeadlineExceeded", "RetryPolicy", "TransientError",
-           "retry_call"]
+           "retry_call", "run_with_deadline"]
 
 _log = logging.getLogger("mxnet_tpu_torch.resilience")
 
@@ -121,3 +122,31 @@ class Deadline:
 
     def __exit__(self, *exc):
         return False
+
+
+def run_with_deadline(fn, seconds, what="operation"):
+    """Run `fn()` on a watchdog: if it does not return within `seconds`,
+    raise a diagnosable `DeadlineExceeded` instead of hanging the caller
+    forever. The stuck call keeps running on a daemon thread (it cannot
+    be cancelled from Python) — the process state is suspect after a
+    timeout and the caller should treat it as fatal-but-explainable."""
+    done = {}
+
+    def target():
+        try:
+            done["result"] = fn()
+        except BaseException as err:  # propagated to the caller below
+            done["error"] = err
+
+    th = threading.Thread(target=target, daemon=True,
+                          name="deadline:%s" % what)
+    th.start()
+    th.join(timeout=float(seconds))
+    if th.is_alive():
+        raise DeadlineExceeded(
+            "%s did not complete within %.6gs — a peer process likely "
+            "died or wedged (the call is still blocked on a daemon "
+            "thread)" % (what, seconds))
+    if "error" in done:
+        raise done["error"]
+    return done.get("result")

@@ -25,12 +25,22 @@ bookkeeping never waits for the device. `ContinuousBatchScheduler` owns
 slot assignment; the engine only moves tensors.
 
 `dtype="bf16"` (or env ``MXTPU_SERVE_DTYPE=bf16``) casts params and the
-cache to bfloat16; logits come back to fp32 before the greedy argmax
-either way. The JAX engine's AOT export/load and its memory/goodput
-ledger calls are not ported yet.
+cache to bfloat16, and the prefill's attention and every LayerNorm run
+the bf16 paths of the `flash_attention` and `layer_norm` kernels on the
+card; logits come back to fp32 before the greedy argmax either way.
+
+Accounting as in the JAX engine: the params, KV cache and position
+vector are cells of the memory ledger (`device_bytes` reconciles them);
+each dispatch charges the decoder-FLOPs estimate 2 * n_params * n_tokens
+to ``goodput.flops``; prefill and step run under the ledger's OOM guard,
+prefill under the request's trace annotation. ``serving.decode.compiles``
+counts each decode program (a prefill bucket, admit, step) at its first
+dispatch. The JAX engine's AOT export/load is not ported: `aot_export`
+and `aot_load` raise `MXNetError` naming ROADMAP A9's compile plane.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -38,11 +48,18 @@ import torch
 
 from ..base import MXNetError, getenv
 from ..context import resolve_device
+from ..observability import goodput as _goodput
+from ..observability import memory as _memory
 from ..observability import registry as _obs
-from .engine import bucket_sizes, resolve_serve_dtype
+from ..observability import trace as _trace
+from .engine import _AOT_MSG, bucket_sizes, resolve_serve_dtype
 
 __all__ = ["DecodeEngine"]
 
+_COMPILES = _obs.counter(
+    "serving.decode.compiles",
+    "decode-path programs run for the first time, by kind "
+    "(prefill buckets, admit, step)")
 _STEP_SECONDS = _obs.histogram(
     "serving.decode.step.seconds",
     "wall time of one whole-batch decode step, tokens back on the host")
@@ -96,6 +113,8 @@ class DecodeEngine:
         cast = self.dtype if self.dtype == "bf16" else None
         self._params = {k: v.to(self.device)
                         for k, v in block.decode_params(dtype=cast).items()}
+        self._lock = threading.Lock()
+        self._compiled = {}
         self.steps = 0
         self.reset()
 
@@ -113,6 +132,72 @@ class DecodeEngine:
         self.positions = np.zeros((self.max_slots,), np.int64)
         self.active = np.zeros((self.max_slots,), bool)
         self.tokens = np.zeros((self.max_slots,), np.int64)
+        self._ledger_sync()
+
+    def _ledger_sync(self):
+        """Reconcile this engine's memory-ledger cells with the tensors
+        it holds — params, the statically-shaped KV cache (the dominant
+        cell at scale), and the position vector."""
+        _memory.set_bytes(self.name, "decode", "params",
+                          _memory.nbytes(self._params))
+        _memory.set_bytes(self.name, "decode", "kv_cache",
+                          int(self._cache_k.nbytes)
+                          + int(self._cache_v.nbytes))
+        _memory.set_bytes(self.name, "decode", "positions",
+                          int(self._positions.nbytes))
+
+    def device_bytes(self):
+        """Measured device bytes this engine keeps resident: params plus
+        the KV cache and position vector — what a model-multiplexing
+        registry accounts against its budget. The cache is allocated for
+        max_slots whether or not any sequence is active."""
+        self._ledger_sync()      # ledger and budget agree by definition
+        return (_memory.nbytes(self._params) + int(self._cache_k.nbytes)
+                + int(self._cache_v.nbytes) + int(self._positions.nbytes))
+
+    @property
+    def compiled_programs(self):
+        """{kind: count} of decode programs this engine has run: 'prefill'
+        (one per padding bucket used), 'admit', 'step'."""
+        with self._lock:
+            out = {}
+            for key in self._compiled:
+                kind = key[0] if isinstance(key, tuple) else key
+                out[kind] = out.get(kind, 0) + 1
+            return out
+
+    def _count_compile(self, key):
+        with self._lock:
+            if key in self._compiled:
+                return
+            self._compiled[key] = 1
+        kind = key[0] if isinstance(key, tuple) else key
+        _COMPILES.inc(engine=self.name, kind=kind)
+
+    # -- ahead-of-time programs: the compile plane is not ported -------
+    def aot_export(self, store, buckets=None, verify=True):
+        raise MXNetError("DecodeEngine.aot_export: " + _AOT_MSG)
+
+    def aot_load(self, store, buckets=None):
+        raise MXNetError("DecodeEngine.aot_load: " + _AOT_MSG)
+
+    @property
+    def aot_programs(self):
+        return []
+
+    def _charge_goodput(self, kind, bucket=None, tokens=None):
+        """Charge one dispatch's FLOPs to the goodput counter under the
+        program's name: the decoder-FLOPs estimate 2 * n_params *
+        n_tokens, as the JAX engine charges it."""
+        if not _goodput.enabled():
+            return
+        name = "decode/%s/%s" % (self.name, kind if bucket is None
+                                 else "%s_b%d" % (kind, bucket))
+        if _goodput.cost(name) is None:
+            n_elems = sum(int(v.numel()) for v in self._params.values())
+            n_tok = int(tokens if tokens is not None else (bucket or 1))
+            _goodput.record_cost(name, flops=2.0 * n_elems * n_tok)
+        _goodput.note_dispatch(name)
 
     @property
     def free_slots(self):
@@ -157,10 +242,17 @@ class DecodeEngine:
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = tokens
         t0 = time.perf_counter()
-        next_token, k_seq, v_seq = self._block.prefill(
-            torch.from_numpy(padded).to(self.device), n,
-            params=self._params)
-        self._admit(k_seq, v_seq, slot, n)
+        # prefill + admit run under the requesting trace's annotation
+        # (the scheduler restores the submit context)
+        with _memory.oom_guard("decode.prefill", self.name), \
+                _trace.device_annotation():
+            next_token, k_seq, v_seq = self._block.prefill(
+                torch.from_numpy(padded).to(self.device), n,
+                params=self._params)
+            self._count_compile(("prefill", bucket))
+            self._admit(k_seq, v_seq, slot, n)
+            self._count_compile("admit")
+        self._charge_goodput("prefill", bucket=bucket)
         first = int(next_token)
         self.positions[slot] = n
         self.active[slot] = True
@@ -185,9 +277,12 @@ class DecodeEngine:
         t0 = time.perf_counter()
         tokens = torch.from_numpy(self.tokens).to(self.device)
         active = torch.from_numpy(self.active).to(self.device)
-        next_tokens = self._block.step(
-            self._cache_k, self._cache_v, self._positions, active, tokens,
-            params=self._params)
+        with _memory.oom_guard("decode.step", self.name):
+            next_tokens = self._block.step(
+                self._cache_k, self._cache_v, self._positions, active,
+                tokens, params=self._params)
+            self._count_compile("step")
+        self._charge_goodput("step", tokens=self.max_slots)
         out = next_tokens.cpu().numpy()
         self.positions[self.active] += 1
         self.tokens[self.active] = out[self.active]
@@ -219,3 +314,11 @@ class DecodeEngine:
                          slot=self.free_slots[0])
             self.step()
             self.reset()
+
+    def replicate(self, device, name=None):
+        """A sibling engine (same block, fresh cache) bound to `device` —
+        ModelServer's per-device decode replicas, and the fresh engine a
+        scheduler swaps in after a wedged dispatch."""
+        return type(self)(self._block, max_slots=self.max_slots,
+                          dtype=self.dtype, device=device,
+                          name=name or "%s@%s" % (self.name, device))

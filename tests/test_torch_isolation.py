@@ -68,7 +68,7 @@ def test_distributed_training_imports_no_jax(tmp_path):
     environment, pushes and pulls, and a Trainer over it takes the fused
     step; the bucketing and compression modules run too."""
     code = r"""
-import socket, sys
+import sys, tempfile
 BLOCK = ("jax", "jaxlib", "mxnet_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -78,11 +78,11 @@ for m in [m for m in sys.modules if m.split(".")[0] in BLOCK]:
     del sys.modules[m]
 sys.meta_path.insert(0, Block())
 import os
-s = socket.socket(); s.bind(("127.0.0.1", 0))
-os.environ.update(JAX_COORDINATOR_ADDRESS="127.0.0.1:%d"
-                  % s.getsockname()[1], JAX_NUM_PROCESSES="1",
-                  JAX_PROCESS_ID="0")
-s.close()
+# port 0: the store binds a free port itself and publishes it
+os.environ.update(JAX_COORDINATOR_ADDRESS="127.0.0.1:0",
+                  JAX_NUM_PROCESSES="1", JAX_PROCESS_ID="0",
+                  MXTPU_DIST_PORT_FILE=os.path.join(tempfile.mkdtemp(),
+                                                    "port"))
 import torch
 import torch.distributed as dist
 import mxnet_tpu_torch as mx
@@ -359,7 +359,7 @@ def test_sharded_trainer_across_processes_runs_with_jax_blocked(tmp_path):
     one, a TrainerCheckpoint save and restore with its telemetry record,
     `shard_map_compat` and the axis helpers, and the chaos spec parser."""
     code = r"""
-import json, os, socket, sys
+import json, os, sys
 BLOCK = ("jax", "jaxlib", "mxnet_tpu")
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -376,11 +376,10 @@ from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
 from mxnet_tpu_torch.resilience import chaos
 tmp = sys.argv[1]
 os.environ["MXTPU_TELEMETRY"] = os.path.join(tmp, "t.jsonl")
-s = socket.socket(); s.bind(("127.0.0.1", 0)); port = s.getsockname()[1]
-s.close()
 try:
     with mx.cpu():
-        init_distributed("127.0.0.1:%d" % port, 1, 0)
+        init_distributed("127.0.0.1:0", 1, 0,
+                         port_file=os.path.join(tmp, "coordinator.port"))
         m = mesh.make_mesh()
         assert m.spans_processes and m.shape == {"dp": 1}
         f = mesh.shard_map_compat(lambda x: mesh.psum(x, "dp"), m,

@@ -29,9 +29,9 @@ collective per bucket, 2-bit compression on the wire). Here:
 """
 import os
 import signal
-import socket
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -218,14 +218,19 @@ def test_compressed_ranks_equal_the_exact_oracle(gang):
                .tobytes() for k in _keys(gang[0], "mlp_comp"))
 
 
+def _rendezvous(tmp_path):
+    """Port 0: rank 0 binds a free port and publishes it in a file the
+    other rank waits for, so no port is probed and closed before rank 0
+    binds it."""
+    return "127.0.0.1:0", {"MXTPU_DIST_PORT_FILE":
+                           str(tmp_path / "coordinator.port")}
+
+
 def test_a_rank_started_by_explicit_arguments_joins(tmp_path):
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    coordinator = "127.0.0.1:%d" % s.getsockname()[1]
-    s.close()
+    coordinator, env = _rendezvous(tmp_path)
     outs = _run_gang([[sys.executable, WORKER, coordinator, "2", str(r),
                        "--out", str(tmp_path)] for r in range(2)],
-                     GANG_TIMEOUT_S)
+                     GANG_TIMEOUT_S, env)
     for r, (rc, log) in enumerate(outs):
         assert rc == 0 and "WORKER_%d_OK" % r in log, log[-4000:]
     a, b = (np.load(str(tmp_path / ("rank%d.npz" % r))) for r in range(2))
@@ -290,14 +295,58 @@ os._exit(0)
 
 
 def _barrier_gang(tmp_path, mode, env):
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    coordinator = "127.0.0.1:%d" % s.getsockname()[1]
-    s.close()
+    coordinator, rdv_env = _rendezvous(tmp_path)
     flag = str(tmp_path / "rank0_done")
     return _run_gang([[sys.executable, "-c", BARRIER_WORKER, coordinator,
                        str(r), mode, flag] for r in range(2)],
-                     BARRIER_GANG_S, env)
+                     BARRIER_GANG_S, {**rdv_env, **env})
+
+
+# one rank of a 2-rank gloo gang that only meets its peer: argv RANK
+RENDEZVOUS_WORKER = r"""
+import os, sys
+import torch
+import torch.distributed as dist
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch.parallel.kvstore_dist import init_distributed
+rank = int(sys.argv[1])
+with mx.cpu():
+    init_distributed("127.0.0.1:0", 2, rank)
+    t = torch.tensor([float(rank + 1)])
+    dist.all_reduce(t)
+    print("RDV_OK_%d %g" % (rank, t.item()), flush=True)
+    dist.destroy_process_group()
+"""
+
+
+def test_concurrent_gangs_rendezvous_on_ports_their_rank_0_bound(tmp_path):
+    """Three 2-rank gangs start at once, as the suite's parallel workers
+    start theirs: every rank 0 binds port 0 and publishes the port it got,
+    so no port is probed and closed first for another process to take in
+    between. All six ranks meet their peer, each gang on its own port."""
+    gangs = []
+    for g in range(3):
+        coordinator, env = _rendezvous(tmp_path / ("g%d" % g))
+        os.makedirs(str(tmp_path / ("g%d" % g)))
+        gangs.append((env, [[sys.executable, "-c", RENDEZVOUS_WORKER,
+                             str(r)] for r in range(2)]))
+    results = [None] * 3
+
+    def run(g):
+        env, argvs = gangs[g]
+        results[g] = _run_gang(argvs, BARRIER_GANG_S, env)
+    threads = [threading.Thread(target=run, args=(g,)) for g in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    ports = set()
+    for g, outs in enumerate(results):
+        for r, (rc, log) in enumerate(outs):
+            assert rc == 0 and "RDV_OK_%d 3" % r in log, log[-4000:]
+        with open(gangs[g][0]["MXTPU_DIST_PORT_FILE"]) as f:
+            ports.add(int(f.read()))
+    assert len(ports) == 3 and 0 not in ports
 
 
 def test_init_timeout_bounds_the_rendezvous_alone(tmp_path):

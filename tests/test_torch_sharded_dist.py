@@ -29,10 +29,11 @@ Every rank ends with the same state, bit for bit. What is held:
   concatenated batch.
 """
 import os
+import shutil
 import signal
-import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -80,24 +81,26 @@ def _env():
     return env
 
 
-def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+def rendezvous_env(rdv_dir):
+    """The coordinator address and env of a gang whose rank 0 binds a
+    free port itself and publishes it in a file of `rdv_dir` (no port is
+    probed and closed before rank 0 binds it, so no concurrent process
+    can take it in between)."""
+    return "127.0.0.1:0", {"MXTPU_DIST_PORT_FILE":
+                           os.path.join(rdv_dir, "coordinator.port")}
 
 
 def run_gang(mode, nproc, inputs, out, timeout=GANG_TIMEOUT_S, env=None):
     """Start `nproc` ranks of the worker by explicit arguments, each in
     its own session; wait for all within `timeout` seconds, then kill
     every process group still alive. Returns [(returncode, output)]."""
-    coord = "127.0.0.1:%d" % _free_port()
+    rdv = tempfile.mkdtemp(prefix="mxtpu_rdv_")
+    coord, rdv_env = rendezvous_env(rdv)
     # DMLC_WORKER_ID names each rank to its MXTPU_CHAOS_RANK_<r> spec
     procs = [subprocess.Popen(
         [sys.executable, WORKER, coord, str(nproc), str(r), "--mode", mode,
          "--inputs", inputs, "--out", out], cwd=ROOT,
-        env={**_env(), **(env or {}), "DMLC_WORKER_ID": str(r)},
+        env={**_env(), **rdv_env, **(env or {}), "DMLC_WORKER_ID": str(r)},
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         start_new_session=True)
         for r in range(nproc)]
@@ -117,6 +120,7 @@ def run_gang(mode, nproc, inputs, out, timeout=GANG_TIMEOUT_S, env=None):
             except ProcessLookupError:
                 pass
             p.wait()
+        shutil.rmtree(rdv, ignore_errors=True)
     return outs
 
 

@@ -19,7 +19,7 @@ import argparse
 import faulthandler
 import json
 import os
-import socket
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -71,13 +71,13 @@ def worker(coordinator, rank, mode, flag, backend):
 
 
 def gang(mode, backend, env):
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    coordinator = "127.0.0.1:%d" % s.getsockname()[1]
-    s.close()
-    flag = os.path.join(tempfile.gettempdir(),
-                        "torch_barrier_check_%d_%s" % (os.getpid(), mode))
-    env = dict(os.environ, MXTPU_DIST_BACKEND=backend, **env)
+    # port 0: rank 0 binds a free port and publishes it in a file the
+    # other rank waits for (no port probed and closed before the bind)
+    coordinator = "127.0.0.1:0"
+    rdv = tempfile.mkdtemp(prefix="torch_barrier_check")
+    flag = os.path.join(rdv, "rank0_done_%s" % mode)
+    env = dict(os.environ, MXTPU_DIST_BACKEND=backend,
+               MXTPU_DIST_PORT_FILE=os.path.join(rdv, "port"), **env)
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--worker",
          coordinator, str(r), mode, flag, backend], env=env,
@@ -93,8 +93,7 @@ def gang(mode, backend, env):
             p.kill()
             log, _ = p.communicate()
         outs.append((p.returncode, log.decode(errors="replace")))
-    if os.path.exists(flag):
-        os.remove(flag)
+    shutil.rmtree(rdv, ignore_errors=True)
     return outs
 
 

@@ -178,7 +178,7 @@ Phases; any failure exits non-zero before the final line:
              HybridBlock calling F.contrib.flash_attention: LayerNorm and
              flash attention launch their kernels inside the graphs.
 
-23. dist_small — tools/launch.py -n 2 starts tests/torch_dist_worker.py
+23. dist_small — tools/torch_launch.py -n 2 starts tests/torch_dist_worker.py
              --device cuda on the one card, over gloo (MXTPU_DIST_BACKEND,
              CUDA tensors staged through the host; NCCL refuses two ranks
              on one device): each rank checks the distributed store's
@@ -225,6 +225,47 @@ Phases; any failure exits non-zero before the final line:
              the first's, 6 conv1x1_bn_stats launches a step (the
              executor's rewrite, conv1x1_simt_kernel) and one
              fused_sgd_momentum launch a SGD group.
+
+29. planes — the training planes, right after model_server. (a) At full
+             width, gluon_train's recipe (ResNet-50 v1, NHWC, b128 at 224
+             px, bf16 over fp32 masters, multi-precision SGD through
+             gluon.Trainer) under MXTPU_TELEMETRY, cuDNN deterministic: 2
+             warm-up steps, saved; then from that state 10 steps with the
+             numerics guard on, twice, and 10 with a trainer made under
+             MXTPU_NUMERICS=0. Gates: losses,
+             weights, momenta and BatchNorm statistics of the three
+             windows bit-identical; one source "gluon.trainer" record a
+             step in the JAX package's schema (numerics_time when the
+             guard is on, step_dispatches 1), read by
+             tools/telemetry_report.py and tools/perf_gate.py
+             --max-skipped-steps 0 --max-dispatches-per-step 1 as
+             subprocesses (rc 0); 36 conv1x1_bn_stats and 1
+             fused_sgd_momentum launches a step. Then, loss-scaled
+             (trainer.scale_loss) with MXTPU_CHAOS="grad.post:kind=nan,
+             after=3,n=1": step 3 leaves weights and momenta bit-identical
+             while steps 2 and 4 update (the running statistics move with
+             the clean forward, as in the JAX package), the loss scale
+             halves, that step's record carries skipped_steps 1, one
+             numerics_skip event, and perf_gate --max-skipped-steps 0
+             now exits 1. mx.profiler over 2 steps: its chrome trace holds
+             conv1x1_wgmma_kernel and sgd_momentum_kernel events and the
+             step/step and step/numerics spans. img/s with the guard on
+             and off, and the numerics phase's host ms. (b) The recovery
+             drills on train_small's net (fp32, b8 at 32 px, 6 steps,
+             tests/torch_gang_worker.py, a checkpoint a step), all started
+             together: a child that SIGTERMs itself after step 3 saves at
+             the next boundary and exits 75, and its relaunch ends
+             bit-identical to an uninterrupted child; a 2-rank gloo gang
+             under tools/torch_launch.py --supervise whose rank 1
+             MXTPU_CHAOS_RANK_1 kills mid-run: the survivor raises
+             PeerLost (76) well inside the collective's 60 s budget, one
+             restart, rank chaos stripped, bit-identical to an
+             uninterrupted gang; and MXTPU_DIVERGE_PATIENCE=2 NaN steps
+             roll the checkpoints back (exit 77) and the relaunch ends
+             bit-identical. Bit-identical: the trained weights and
+             momenta of every rank, and rank 0's BatchNorm statistics
+             (each rank keeps its own batch's; the checkpoint holds rank
+             0's). The seconds of each, and of the phase.
 
 The kernel phase also times conv1x1_bn_stats in fp32 at ResNet-50's 15
 shapes as module_train calls it (the CUDA-core kernel), and in bf16 at
@@ -305,6 +346,20 @@ def emit(**rec):
 def fail(msg):
     print("chip_smoke: FAIL: %s" % msg, file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def guard_counts():
+    """The numerics guard's counters now (the trainers read their
+    verdicts at every step boundary, so a window's guard is the counters'
+    difference across it)."""
+    from mxnet_tpu_torch.resilience import numerics
+    return numerics.SKIPPED.total(), numerics.ANOMALIES.total()
+
+
+def guard_since(before):
+    skipped, anomalies = guard_counts()
+    return {"skipped_steps": skipped - before[0],
+            "anomalies": anomalies - before[1]}
 
 
 def card_line():
@@ -1763,7 +1818,6 @@ def gluon_train(dev, card):
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.observability import registry
-    from mxnet_tpu_torch.resilience import numerics
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1785,8 +1839,8 @@ def gluon_train(dev, card):
     y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")).to(dev)
     warm = torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
                         for _ in range(GLUON_WARM)]).cpu().numpy()
-    numerics.drain_flags()
     setup_s = time.perf_counter() - t0
+    g0, b0 = guard_counts(), trainer.numerics.last_report["step"]
 
     # the main path, with every launch counter at 0 just before it
     groups = registry.counter("optimizer.fused.groups")
@@ -1800,14 +1854,16 @@ def gluon_train(dev, card):
     launches = ops.launch_counts()
     sgd_groups = groups.get() - groups0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    guard = numerics.drain_flags()
+    # one boundary a step, each reading its step's verdict
+    guard = dict(guard_since(g0),
+                 boundaries=trainer.numerics.last_report["step"] - b0)
     lrs = trainer.learning_rate
 
     if not (np.isfinite(warm).all() and np.isfinite(losses).all()):
         fail("gluon_train: non-finite loss: warm %s, timed %s"
              % (warm, losses))
     if guard["skipped_steps"] or guard["anomalies"] or \
-            guard["total"] != TRAIN_STEPS:
+            guard["boundaries"] != TRAIN_STEPS:
         fail("gluon_train: numerics guard reports %s over %d steps"
              % (guard, TRAIN_STEPS))
     if not losses[-1] < warm[0]:
@@ -3561,7 +3617,8 @@ def _init_world_of_one():
 
 def dist_small(dev, card):
     """2 ranks on the one card over gloo with CUDA tensors, started by
-    tools/launch.py -n 2 as a user starts a gang: each rank checks the
+    tools/torch_launch.py -n 2 as a user starts a gang (rank 0 binds the
+    coordinator's port and publishes it): each rank checks the
     store's exact sums and trains tests/torch_dist_worker.py's nets (a
     narrow NHWC ResNet V1 at b8 and 32 px, fp32, 3 fused then 3 staged
     steps from the same start; an MLP, also 2-bit compressed). Gates: the
@@ -3577,9 +3634,9 @@ def dist_small(dev, card):
     n, batch = DIST_SMALL["ranks"], DIST_SMALL["batch"]
     here = os.path.dirname(os.path.abspath(__file__))
     out = tempfile.mkdtemp(prefix="dist_small")
-    cmd = [sys.executable, os.path.join(here, "tools", "launch.py"), "-n",
-           str(n), sys.executable, os.path.join(here, "tests",
-                                                "torch_dist_worker.py"),
+    cmd = [sys.executable, os.path.join(here, "tools", "torch_launch.py"),
+           "-n", str(n), sys.executable, os.path.join(here, "tests",
+                                                      "torch_dist_worker.py"),
            "--device", "cuda", "--resnet-batch", str(batch), "--out", out]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=here, stdout=subprocess.PIPE,
@@ -3649,7 +3706,7 @@ def dist_small(dev, card):
              % (launches, 6 * w.STEPS, w.STEPS))
     dispatches, flats, groups, steps = ranks[0]["counts"].tolist()
     emit(phase="dist_small", card=card, ranks=n, backend="gloo, CUDA "
-         "tensors (host-staged)", launcher="tools/launch.py -n %d" % n,
+         "tensors (host-staged)", launcher="tools/torch_launch.py -n %d" % n,
          resnet_batch_per_rank=batch, image=w.RESNET["img"], steps=steps,
          gang_s=gang_s, store_exact_sums=True, ranks_bit_identical=True,
          fused_equals_staged=True, resnet_oracle_rel_err=oracle_err,
@@ -3693,7 +3750,6 @@ def dist_train(dev, card, gluon_img_s):
     from mxnet_tpu_torch import ops
     from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
     from mxnet_tpu_torch.observability import registry
-    from mxnet_tpu_torch.resilience import numerics
     gc.collect()
     torch.cuda.empty_cache()
     _init_world_of_one()
@@ -3734,7 +3790,7 @@ def dist_train(dev, card, gluon_img_s):
             os.environ["MXTPU_FUSED_STEP"] = "1" if mode == "fused" else "0"
             net.load_parameters(params)
             trainer.load_states(states)
-            numerics.drain_flags()
+            guard0 = guard_counts()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             d0, g0 = disp.get(), groups.get()
@@ -3747,7 +3803,7 @@ def dist_train(dev, card, gluon_img_s):
             launches = ops.launch_counts()
             dispatches, n_groups = disp.get() - d0, groups.get() - g0
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            guard = numerics.drain_flags()
+            guard = guard_since(guard0)
             finals[mode] = _train_state(net, trainer)
             ran_fused = trainer._updaters[0]._fused_step_owner is not None \
                 and mode == "fused"
@@ -4080,7 +4136,7 @@ def _rel(a, b):
 
 def dist_sharded_small(dev, card):
     """2 ranks on the one card over gloo, eager (MXTPU_CUDA_GRAPH=0),
-    started by tools/launch.py -n 2: tests/torch_sharded_worker.py's
+    started by tools/torch_launch.py -n 2: tests/torch_sharded_worker.py's
     narrow NHWC ResNet V1 (BatchNorm) at global batch 16, 32 px, fp32,
     3 steps each of the global-batch trainer, ZeRO-1 and the 2-bit
     compressed step; a TrainerCheckpoint saved at 2 ranks. Gates: the
@@ -4113,7 +4169,8 @@ def dist_sharded_small(dev, card):
         torch.save({"resnet": weights, "ckpt_dir": os.path.join(tmp, "ck")},
                    inputs)
         out = os.path.join(tmp, "out")
-        cmd = [sys.executable, os.path.join(here, "tools", "launch.py"),
+        cmd = [sys.executable, os.path.join(here, "tools",
+                                            "torch_launch.py"),
                "-n", str(n), sys.executable,
                os.path.join(here, "tests", "torch_sharded_worker.py"),
                "--mode", "chip_small", "--device", "cuda", "--inputs",
@@ -4191,7 +4248,7 @@ def dist_sharded_small(dev, card):
         shutil.rmtree(tmp, ignore_errors=True)
     emit(phase="dist_sharded_small", card=card, ranks=n,
          backend="gloo, CUDA tensors (host-staged)", step="eager",
-         launcher="tools/launch.py -n %d" % n,
+         launcher="tools/torch_launch.py -n %d" % n,
          global_batch=w.RESNET["batch"], image=w.RESNET["img"],
          dtype="fp32", steps=w.RESNET["steps"], gang_s=gang_s,
          ranks_bit_identical=not differ, errors=errs, tolerances=cfg,
@@ -4979,6 +5036,440 @@ def model_server(ops, dev, card, served):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the training planes (step records, the numerics guard, chaos,
+# preemption, the gang supervisor, the profiler)
+# ---------------------------------------------------------------------------
+PLANES = dict(steps=TRAIN_STEPS, nan_at=3, nan_steps=6, profile_steps=2,
+              narrow_steps=6, sigterm_at=3, kill_after=5, nan_after=3,
+              patience=2, collective_budget_s=60, timeout_s=300)
+# what every JAX-schema step record holds (mxnet_tpu/observability/
+# telemetry.py:337-347, the phases and the batch)
+STEP_RECORD_KEYS = {"ts", "source", "step", "step_time", "data_wait",
+                    "compile_count", "compile_seconds", "kvstore_bytes",
+                    "batch_size", "samples_per_sec"}
+
+
+def _records(path, source="gluon.trainer"):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if source is None or r.get("source") == source]
+
+
+def _weights_and_momenta(net, trainer):
+    """Copies of the trained parameters (not the running statistics) and
+    of the optimizer's state tensors."""
+    out = [p.data().detach().clone() for p in net.collect_params().values()
+           if p.grad_req != "null"]
+    for st in trainer._updaters[0].states.values():
+        for t in (st if isinstance(st, (list, tuple)) else (st,)):
+            if isinstance(t, torch.Tensor):
+                out.append(t.detach().clone())
+    return out
+
+
+def _tensors_equal(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _tool(name, *args):
+    here = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.run([sys.executable, os.path.join(here, "tools", name),
+                           *args], capture_output=True, text=True,
+                          timeout=120)
+
+
+def planes_full(dev, card, tmp):
+    """planes (a): ResNet-50 b128 NHWC bf16 through gluon.Trainer under
+    MXTPU_TELEMETRY (module docstring, phase 29)."""
+    import gc
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, ops, profiler
+    from mxnet_tpu_torch.gluon.model_zoo.vision import resnet50_v1
+    from mxnet_tpu_torch.observability import registry, telemetry
+    from mxnet_tpu_torch.resilience import chaos
+    cfg = PLANES
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_setup = time.perf_counter()
+    mx.random.seed(0)
+    net = resnet50_v1(layout="NHWC", device=dev)
+    net.initialize()
+    net.cast("bfloat16")
+
+    def make_trainer():
+        return mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+            "multi_precision": True,
+            "lr_scheduler": mx.lr_scheduler.FactorScheduler(step=5,
+                                                            factor=0.5)})
+    trainer = make_trainer()
+    os.environ["MXTPU_NUMERICS"] = "0"
+    trainer_off = make_trainer()          # made with the guard off
+    del os.environ["MXTPU_NUMERICS"]
+    if trainer.numerics is None or trainer_off.numerics is not None:
+        fail("planes: the guard should be on by default and off under "
+             "MXTPU_NUMERICS=0 (on: %s, off: %s)"
+             % (trainer.numerics, trainer_off.numerics))
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(BATCH, IMG, IMG, 3).astype("float32")) \
+        .to(dev).to(torch.bfloat16)
+    y = torch.from_numpy((rng.rand(BATCH) * 1000).astype("float32")).to(dev)
+    torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                 for _ in range(GLUON_WARM)]).cpu()
+    params, states = (os.path.join(tmp, "net.params"),
+                      os.path.join(tmp, "trainer.states"))
+    net.save_parameters(params)
+    trainer.save_states(states)
+    setup_s = time.perf_counter() - t_setup
+
+    groups = registry.counter("optimizer.fused.groups")
+    windows = {}
+    # the guard-on trainer's windows back to back: a record's deltas run
+    # from its timer's previous step, which another trainer's window
+    # would land in
+    for mode, tr in (("on", trainer), ("on_again", trainer),
+                     ("off", trainer_off)):
+        net.load_parameters(params)
+        tr.load_states(states)
+        if mode == "off":
+            os.environ["MXTPU_NUMERICS"] = "0"
+        stream = os.path.join(tmp, "planes_%s.jsonl" % mode)
+        os.environ["MXTPU_TELEMETRY"] = stream
+        torch.cuda.synchronize()
+        g0, grp0 = guard_counts(), groups.get()
+        # the main path, with every launch counter at 0 just before it
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses = torch.stack([gluon_loop(net, tr, loss_fn, x, y)
+                              for _ in range(cfg["steps"])]).cpu()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        del os.environ["MXTPU_TELEMETRY"]
+        os.environ.pop("MXTPU_NUMERICS", None)
+        telemetry.close_stream()
+        recs = _records(stream)
+        windows[mode] = dict(
+            losses=losses, state=_train_state(net, tr), wall=wall,
+            launches=launches, sgd_groups=groups.get() - grp0,
+            guard=guard_since(g0), records=recs, stream=stream,
+            img_s=BATCH * cfg["steps"] / wall,
+            numerics_ms=[r["numerics_time"] * 1e3 for r in recs
+                         if "numerics_time" in r],
+            # the fused step's phase is named "step", so its time is what
+            # the record's step_time holds (as in the JAX package)
+            step_phase_ms=[r["step_time"] * 1e3 for r in recs])
+    on, off, again = windows["on"], windows["off"], windows["on_again"]
+    bit_identical = all(
+        torch.equal(on["losses"], w["losses"]) and _tensors_equal(on["state"],
+                                                         w["state"])
+        for w in (off, again))
+    if not bit_identical:
+        fail("planes: the guard changed a clean run: losses on %s, off %s, "
+             "on again %s" % (on["losses"].tolist(), off["losses"].tolist(),
+                              again["losses"].tolist()))
+    if not torch.isfinite(on["losses"]).all() or on["guard"]["skipped_steps"] \
+            or on["guard"]["anomalies"]:
+        fail("planes: losses %s, guard %s" % (on["losses"].tolist(),
+                                              on["guard"]))
+    for mode, w in windows.items():
+        recs = w["records"]
+        # a trainer made under MXTPU_NUMERICS=0 has no guard, no phase
+        want = STEP_RECORD_KEYS | ({"numerics_time"} if mode != "off"
+                                   else set())
+        missing = [sorted(want - set(r)) for r in recs
+                   if not want <= set(r)]
+        if len(recs) != cfg["steps"] or missing or any(
+                r.get("step_dispatches") != 1 for r in recs):
+            fail("planes %s: %d gluon.trainer records for %d steps, "
+                 "missing keys %s, step_dispatches %s" % (
+                     mode, len(recs), cfg["steps"], missing[:2],
+                     [r.get("step_dispatches") for r in recs]))
+        lc = w["launches"]
+        if lc["conv1x1_bn_stats"] != 36 * cfg["steps"] or \
+                lc["fused_sgd_momentum"] != w["sgd_groups"] or \
+                w["sgd_groups"] != cfg["steps"]:
+            fail("planes %s: launches %s and %d SGD groups over %d steps, "
+                 "want 36 conv1x1_bn_stats a step and one fused_sgd_momentum "
+                 "launch a step" % (mode, lc, w["sgd_groups"],
+                                     cfg["steps"]))
+    report = _tool("telemetry_report.py", "--json", on["stream"])
+    gate = _tool("perf_gate.py", on["stream"], "--max-skipped-steps", "0",
+                 "--max-dispatches-per-step", "1")
+    summary = json.loads(report.stdout) if report.returncode == 0 else None
+    if summary is None or summary.get("steps") != cfg["steps"] or \
+            gate.returncode != 0:
+        fail("planes: telemetry_report rc %d (%s), perf_gate rc %d (%s %s)"
+             % (report.returncode, report.stderr[-500:], gate.returncode,
+                gate.stdout[-500:], gate.stderr[-500:]))
+
+    # the NaN drill: a loss-scaled run, grad.post poisoned at step k only
+    k = cfg["nan_at"]
+    net.load_parameters(params)
+    trainer.load_states(states)
+    stream = os.path.join(tmp, "planes_nan.jsonl")
+    os.environ["MXTPU_TELEMETRY"] = stream
+    os.environ["MXTPU_CHAOS"] = "grad.post:kind=nan,after=%d,n=1" % k
+    chaos.reset()
+    snaps, scales, stats = [], [], []
+    try:
+        for i in range(cfg["nan_steps"]):
+            snaps.append(_weights_and_momenta(net, trainer))
+            stats.append(running_stats(net))
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+                scaled = trainer.scale_loss(loss)
+            scaled.backward()
+            trainer.step(BATCH)
+            scales.append(trainer.loss_scale)
+        snaps.append(_weights_and_momenta(net, trainer))
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["MXTPU_CHAOS"]
+        del os.environ["MXTPU_TELEMETRY"]
+        chaos.reset()
+        telemetry.close_stream()
+    nan_recs = _records(stream)
+    events = [r for r in _records(stream, None)
+              if r.get("event") == "numerics_skip"]
+    skipped_identical = _tensors_equal(snaps[k], snaps[k + 1])
+    neighbours_moved = not _tensors_equal(snaps[k - 1], snaps[k]) and \
+        not _tensors_equal(snaps[k + 1], snaps[k + 2])
+    stats_moved = any(not torch.equal(stats[k][n], stats[k + 1][n])
+                      for n in stats[k])
+    nan_gate = _tool("perf_gate.py", stream, "--max-skipped-steps", "0")
+    if not (skipped_identical and neighbours_moved) or \
+            scales[k - 1] != 2 * scales[k] or \
+            [r.get("skipped_steps", 0) for r in nan_recs] != \
+            [int(i == k) for i in range(cfg["nan_steps"])] or \
+            len(events) != 1 or nan_gate.returncode != 1:
+        fail("planes NaN drill: step %d skipped bit-identically %s, steps "
+             "around it moved %s, loss scales %s, records' skipped_steps %s, "
+             "numerics_skip events %d, perf_gate rc %d" % (
+                 k, skipped_identical, neighbours_moved, scales,
+                 [r.get("skipped_steps", 0) for r in nan_recs], len(events),
+                 nan_gate.returncode))
+
+    # mx.profiler over 2 steps: one chrome trace with the kernels and spans
+    kernels, spans, prof_path = {}, set(), None
+    for attempt in range(3):
+        profiler.set_config(filename=os.path.join(tmp, "profile%d"
+                                                  % attempt))
+        profiler.set_state("run")
+        torch.stack([gluon_loop(net, trainer, loss_fn, x, y)
+                     for _ in range(cfg["profile_steps"])]).cpu()
+        torch.cuda.synchronize()
+        prof_path = profiler.dump()
+        with open(prof_path) as f:
+            trace = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in trace:
+            if e.get("cat") == "kernel":
+                name = e.get("name", "")
+                for tag in ("conv1x1_wgmma_kernel", "sgd_momentum_kernel"):
+                    if tag in name:
+                        kernels[tag] = kernels.get(tag, 0) + 1
+        spans = {e.get("name", "").split("[")[0] for e in trace
+                 if e.get("name", "").startswith("step/")}
+        if len(kernels) == 2:
+            break
+    if len(kernels) != 2 or not {"step/step", "step/numerics"} <= spans:
+        fail("planes: mx.profiler's trace %s holds kernels %s and spans %s; "
+             "want conv1x1_wgmma_kernel, sgd_momentum_kernel, step/step "
+             "and step/numerics" % (prof_path, kernels, sorted(spans)))
+    def per_step(v):
+        return [float(np.mean(v)), float(np.max(v))] if v else None
+    return on["launches"], dict(
+        model="ResNet-50 v1, NHWC, b128 at 224 px, net.cast(bfloat16), "
+        "multi_precision SGD through gluon.Trainer", setup_s=setup_s,
+        steps=cfg["steps"], img_s_guard_on=on["img_s"],
+        img_s_guard_off=off["img_s"], img_s_guard_on_again=again["img_s"],
+        step_ms_guard_on=on["wall"] / cfg["steps"] * 1e3,
+        step_ms_guard_off=off["wall"] / cfg["steps"] * 1e3,
+        step_ms_guard_on_again=again["wall"] / cfg["steps"] * 1e3,
+        numerics_phase_ms_mean_max=per_step(on["numerics_ms"]),
+        numerics_phase_ms_mean_max_again=per_step(again["numerics_ms"]),
+        step_phase_ms_mean_max=per_step(on["step_phase_ms"]),
+        guard_on_equals_off_bit_for_bit=bit_identical,
+        records_per_window=len(on["records"]),
+        record_keys=sorted(on["records"][0]),
+        telemetry_report=summary, perf_gate=json.loads(gate.stdout),
+        launches=on["launches"], sgd_groups=on["sgd_groups"],
+        nan_drill=dict(step=k, skipped_bit_identical=skipped_identical,
+                       running_stats_moved_by_the_forward=stats_moved,
+                       loss_scales=scales,
+                       skipped_steps=[r.get("skipped_steps", 0)
+                                      for r in nan_recs],
+                       numerics_skip_events=len(events),
+                       perf_gate_rc=nan_gate.returncode),
+        profiler=dict(path=os.path.basename(prof_path), attempts=attempt + 1,
+                      kernel_events=kernels, spans=sorted(spans)))
+
+
+def _drill(here, tmp, name, n, extra_env, *args, supervise=True):
+    """Start one narrow drill: tests/torch_gang_worker.py, under
+    tools/torch_launch.py --supervise unless `supervise` is False."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d, exist_ok=True)
+    worker = [sys.executable, os.path.join(here, "tests",
+                                           "torch_gang_worker.py"),
+              "--model", "resnet", "--device", "cuda", "--steps",
+              str(PLANES["narrow_steps"]), "--ckpt-dir",
+              os.path.join(d, "ck"), "--out", os.path.join(d, "o"), *args]
+    cmd = worker if not supervise else [
+        sys.executable, os.path.join(here, "tools", "torch_launch.py"),
+        "-n", str(n), "--supervise", "--gang-dir", os.path.join(d, "gang")
+    ] + worker
+    env = dict(os.environ, MXTPU_DIST_BACKEND="gloo",
+               MXTPU_RESTART_BACKOFF_S="0.1", MXTPU_GANG_KILL_GRACE_S="5",
+               MXTPU_GANG_PEER_POLL_S="0.2",
+               MXTPU_WATCHDOG_COLLECTIVE_S=str(PLANES["collective_budget_s"]),
+               **extra_env)
+    for k in ("MXTPU_TELEMETRY", "MXTPU_CHAOS"):
+        env.pop(k, None)
+    proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(name=name, dir=d, proc=proc, n=n, t0=time.perf_counter())
+
+
+def _finish_drill(drill, deadline):
+    import signal
+    proc = drill["proc"]
+    try:
+        out, _ = proc.communicate(timeout=max(1.0, deadline -
+                                              time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        out = b"timed out"
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait()
+    log = out.decode(errors="replace")
+    reports = [json.loads(line.split(" ", 1)[1]) for line in
+               log.splitlines() if line.startswith("GANG_REPORT ")]
+    events = []
+    for r in range(drill["n"]):
+        events += _records(os.path.join(drill["dir"], "o.r%d.jsonl" % r),
+                           None)
+    return dict(rc=proc.returncode, log=log, seconds=time.perf_counter() -
+                drill["t0"], report=reports[-1] if reports else None,
+                digests=sorted({e["digest"] for e in events
+                                if e["event"] == "done"}),
+                stats0=[e["stats_digest"] for e in events
+                        if e["event"] == "done" and e["rank"] == 0],
+                starts=[e for e in events if e["event"] == "start"])
+
+
+def planes_narrow(tmp):
+    """planes (b): the recovery drills on train_small's net, fp32, each a
+    child of its own (module docstring, phase 29)."""
+    cfg = PLANES
+    here = os.path.dirname(os.path.abspath(__file__))
+    deadline = time.perf_counter() + cfg["timeout_s"]
+    drills = [
+        _drill(here, tmp, "ref1", 1, {}, supervise=False),
+        _drill(here, tmp, "preempt", 1, {}, "--sigterm-at",
+               str(cfg["sigterm_at"]), supervise=False),
+        _drill(here, tmp, "ref2", 2, {}),
+        _drill(here, tmp, "gang", 2, {
+            "MXTPU_CHAOS_RANK_1": "worker.kill:kind=kill,after=%d"
+            % cfg["kill_after"]}),
+        _drill(here, tmp, "diverge", 1, {
+            "MXTPU_DIVERGE_PATIENCE": str(cfg["patience"]),
+            "MXTPU_CHAOS_RANK_0": "grad.post:kind=nan,after=%d,n=%d"
+            % (cfg["nan_after"], cfg["patience"])})]
+    res = {d["name"]: _finish_drill(d, deadline) for d in drills}
+    # the preempted child's relaunch resumes from its checkpoint
+    t0 = time.perf_counter()
+    res["resume"] = _finish_drill(_drill(here, tmp, "preempt", 1, {},
+                                         supervise=False), deadline)
+    resume_s = time.perf_counter() - t0
+
+    def why(name):
+        r = res[name]
+        return "%s rc %s after %.1f s: %s" % (name, r["rc"], r["seconds"],
+                                              r["log"][-3000:])
+    for name in ("ref1", "ref2"):
+        if res[name]["rc"] != 0 or len(res[name]["digests"]) != 1:
+            fail("planes: uninterrupted run %s" % why(name))
+    ref1, ref2 = res["ref1"]["digests"][0], res["ref2"]["digests"][0]
+    pre, resume = res["preempt"], res["resume"]
+    # the trained weights and momenta of every rank, and rank 0's running
+    # statistics (the checkpoint's), bit-identical to the uninterrupted run
+    if pre["rc"] != 75 or resume["rc"] != 0 or \
+            resume["digests"] != [ref1] or \
+            resume["stats0"] != res["ref1"]["stats0"] or \
+            resume["starts"][-1]["restored_step"] != cfg["sigterm_at"]:
+        fail("planes preemption: %s; %s" % (why("preempt"), why("resume")))
+    gang, rep = res["gang"], res["gang"]["report"]
+    if gang["rc"] != 0 or rep is None or rep["restarts"] != 1 or \
+            gang["digests"] != [ref2] or \
+            gang["stats0"] != res["ref2"]["stats0"] or \
+            rep["incidents"][0]["rank_exit_codes"]["0"] != 76 or \
+            "gang peer rank 1 is lost" not in gang["log"] or \
+            any(s["rank_chaos"] for s in gang["starts"]
+                if s["generation"] > 0):
+        fail("planes gang restart: %s" % why("gang"))
+    div, drep = res["diverge"], res["diverge"]["report"]
+    if div["rc"] != 0 or drep is None or drep["restarts"] != 1 or \
+            drep["incidents"][0]["exit_code"] != 77 or \
+            drep["incidents"][0]["action"] != "restart (rolled back)" or \
+            div["digests"] != [ref1] or \
+            div["stats0"] != res["ref1"]["stats0"]:
+        fail("planes divergence rollback: %s" % why("diverge"))
+    inc = rep["incidents"][0]
+    return dict(
+        model="narrow NHWC ResNet V1 (BottleneckV1, [1, 1], [16, 32, 64]), "
+        "fp32, global batch 8 at 32 px, %d steps, gluon.Trainer SGD"
+        % cfg["narrow_steps"],
+        preemption=dict(exit_code=pre["rc"], preempted_s=pre["seconds"],
+                        resumed_from=resume["starts"][-1]["restored_step"],
+                        resume_s=resume_s, bit_identical=True),
+        gang_restart=dict(
+            ranks=2, backend="gloo (CUDA tensors host-staged)",
+            restarts=rep["restarts"], incident_rank=inc["rank"],
+            rank_exit_codes=inc["rank_exit_codes"],
+            downtime_s=inc["downtime_s"],
+            collective_budget_s=cfg["collective_budget_s"],
+            resumed_from=[s["restored_step"] for s in gang["starts"]
+                          if s["generation"] == 1],
+            gang_s=gang["seconds"], uninterrupted_gang_s=res["ref2"][
+                "seconds"], bit_identical=True),
+        divergence=dict(
+            patience=cfg["patience"], exit_code=77,
+            action=drep["incidents"][0]["action"],
+            restored_to=[s["restored_step"] for s in div["starts"]],
+            downtime_s=drep["incidents"][0]["downtime_s"],
+            run_s=div["seconds"], uninterrupted_s=res["ref1"]["seconds"],
+            bit_identical=True))
+
+
+def planes(dev, card):
+    """Phase 29: the training planes at full width (a) and the recovery
+    drills (b). Returns the guard-on window's launches."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="planes")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        launches, full = planes_full(dev, card, tmp)
+        full_s = time.perf_counter() - t0
+        narrow = planes_narrow(tmp)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(phase="planes", card=card, seconds=time.perf_counter() - t0,
+         full_width_s=full_s, full_width=full, narrow=narrow)
+    return launches
+
+
 def main():
     # a stalled phase shows where it stalls: every 10 minutes, all stacks
     faulthandler.dump_traceback_later(600, repeat=True)
@@ -5074,6 +5565,9 @@ def main():
     # phase 5b: the rest of serving, before the training phases, whose
     # long profiles leave the profiler dropping records
     server_launches = model_server(ops, dev, card, served)
+    # phase 29: the training planes, before the training phases' long
+    # profiles (its mx.profiler trace must hold the kernels' records)
+    planes_launches = planes(dev, card)
 
     # phases 6, 7: training
     train_small(dev)
@@ -5132,7 +5626,8 @@ def main():
                       "record_train_capture":
                           record_launches["capture"][name],
                       "record_module": record_module_launches[name],
-                      "model_server": server_launches[name]}
+                      "model_server": server_launches[name],
+                      "planes": planes_launches[name]}
                for name in ("fused_sgd_momentum", "conv1x1_bn_stats")}
     by_path["layer_norm"] = {"serve": launches["layer_norm"],
                              "model_server": server_launches["layer_norm"],

@@ -39,7 +39,12 @@ file iterators, `image.ImageDetIter`, the record datasets and Module
 health plane, `serving.ModelRegistry` and the HTTP `serving.Gateway`,
 over the observability and resilience planes they need (spans and
 traces, the memory ledger, goodput, ``/metricsz``, the watchdog and the
-device lease).
+device lease); and the training planes: per-step telemetry records
+(`observability.telemetry.StepTimer`), the numerics guard with loss
+scaling, divergence rollback and SDC replay, `corrupt_point`,
+preemption at a step boundary, the gang supervisor
+(`resilience.GangSupervisor`, `tools/torch_launch.py`), `profiler` and
+`monitor`.
 """
 from .base import MXNetError, __version__, getenv
 from .context import (Context, DeviceUnreachable, cpu, current_context,
@@ -48,7 +53,7 @@ from . import (autograd, convert, gluon, initializer, kvstore, lr_scheduler,
                ndarray, observability, ops, optimizer, parallel, random,
                resilience, serving)
 from . import (attribute, callback, cached_op, executor, graph, io, metric,
-               model, module, name, symbol)
+               model, module, monitor, name, profiler, symbol)
 from . import image, recordio
 from . import image as img
 from .attribute import AttrScope
@@ -66,6 +71,7 @@ __all__ = ["AttrScope", "CachedOp", "Context", "MXNetError",
            "gluon", "gpu", "graph", "image", "img", "init", "initializer", "io",
            "kv",
            "kvstore", "lr_scheduler", "metric", "mod", "model", "module",
-           "name", "nd", "ndarray", "num_gpus", "observability", "ops",
-           "optimizer", "parallel", "random", "recordio", "resilience",
+           "monitor", "name", "nd", "ndarray", "num_gpus", "observability",
+           "ops", "optimizer", "parallel", "profiler", "random", "recordio",
+           "resilience",
            "resolve_device", "serving", "sym", "symbol"]

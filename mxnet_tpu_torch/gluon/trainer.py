@@ -21,8 +21,18 @@ The store: a distributed type (``dist_sync``, ``dist_device_sync``,
 ``update_on_kvstore=True`` make one; a local type without those is not
 made, since in one process it would only copy each gradient onto
 itself. With ``update_on_kvstore`` the store runs the updater on its own
-copy of the weights, which `step` pulls back. Loss scaling, rollback,
-SDC replay and step telemetry wait for the operational planes.
+copy of the weights, which `step` pulls back.
+
+The planes (JAX :78-86, :166-215, :255-286): `step` first passes the
+preemption boundary (`resilience.preempt.at_step_boundary`), and is timed
+by a `StepTimer("gluon.trainer")` with the phases ``step`` (fused) or
+``allreduce`` and ``optimizer`` (staged), then ``numerics``: the guard's
+boundary (`trainer.numerics`, a `NumericsGuard`; None under
+``MXTPU_NUMERICS=0``) resolves the step's verdicts, counts a skipped step,
+drives the loss scale and the divergence watchdog. `scale_loss(loss)`
+arms a `GradScaler`: from then on the unscale 1/scale is folded into
+``rescale_grad``, so the SGD kernel unscales as it updates. With
+``MXTPU_TELEMETRY`` set each step appends one record to the stream.
 """
 from __future__ import annotations
 
@@ -30,8 +40,11 @@ from .. import optimizer as opt
 from ..base import MXNetError
 from ..context import context_of
 from ..kvstore import create as _create_kvstore
+from ..observability.telemetry import StepTimer
 from ..parallel import fused_step as _fstep
+from ..resilience import numerics as _numerics
 from ..resilience.atomic import atomic_write
+from ..resilience.preempt import at_step_boundary
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -70,6 +83,13 @@ class Trainer:
         self._ready = False
         self._optimizer = self._make_optimizer(optimizer, opt_kw)
         self._updaters = [opt.get_updater(self._optimizer)]
+        self._telemetry = StepTimer("gluon.trainer")
+        # the numerics guard (default on): the step's verdicts are read
+        # at its boundary
+        self._numerics = (_numerics.NumericsGuard(source="gluon.trainer")
+                          if _numerics.enabled() else None)
+        self._scaler = None          # armed by scale_loss()
+        self._last_grads = None
 
     def _make_optimizer(self, optimizer, opt_kw):
         param_dict = dict(enumerate(self._params))
@@ -125,19 +145,72 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
+    @property
+    def numerics(self):
+        """The trainer's `NumericsGuard` (None under ``MXTPU_NUMERICS=0``):
+        feed its watchdog (``trainer.numerics.note(loss=...)``) and arm
+        rollback and replay (``attach_rollback``, ``attach_replay``)."""
+        return self._numerics
+
+    def scale_loss(self, loss):
+        """Dynamic loss scaling (trainer.py:173): returns ``loss * scale``
+        for the backward and arms the scaler, so `step` folds 1/scale into
+        ``rescale_grad`` and the guard's overflow verdicts halve the
+        scale (and ``MXTPU_SCALE_WINDOW`` clean steps double it). An
+        unscaled run never arms it."""
+        if self._scaler is None:
+            self._scaler = _numerics.GradScaler()
+            if self._numerics is not None:
+                self._numerics.scaler = self._scaler
+        return self._scaler.scale_loss(loss)
+
+    @property
+    def loss_scale(self):
+        return self._scaler.scale if self._scaler is not None else 1.0
+
     def step(self, batch_size, ignore_stale_grad=False):
         """One optimization step: reduce the gradients, then update the
         parameters, with the gradients scaled by 1 / `batch_size`
-        (trainer.py:193); fused when `parallel.fused_step` takes it."""
+        (trainer.py:193); fused when `parallel.fused_step` takes it. A
+        pending preemption checkpoints and stops first; the guard's
+        boundary closes the step (module note)."""
+        at_step_boundary()
         self._ensure_ready()
-        self._optimizer.rescale_grad = self._scale / batch_size
-        if not self._fused_step(ignore_stale_grad):
-            self._reduce()
-            self._apply_updates(ignore_stale_grad)
+        tel = self._telemetry
+        tel.begin_step()
+        self._optimizer.rescale_grad = self._rescale(batch_size)
+        if not self._fused_step(ignore_stale_grad, tel):
+            with tel.phase("allreduce"):
+                self._reduce()
+            with tel.phase("optimizer"):
+                self._apply_updates(ignore_stale_grad)
+        self._numerics_boundary(tel)
+        tel.end_step(batch_size=batch_size)
 
-    def _fused_step(self, ignore_stale_grad):
-        """The fused exchange + update step (trainer.py:216). False, with
-        nothing changed, sends the step to the staged path."""
+    def _rescale(self, batch_size):
+        """This step's rescale_grad: the caller's scale over the batch,
+        times 1/scale once the loss scaler is armed (trainer.py:265)."""
+        scale = self._scale / batch_size
+        if self._scaler is not None and self._scaler.armed:
+            scale *= self._scaler.unscale_factor()
+        return scale
+
+    def _numerics_boundary(self, tel=None):
+        """Resolve the step's verdicts through the guard (may raise
+        `TrainingDiverged` after a rollback)."""
+        if self._numerics is None:
+            return
+        grads, self._last_grads = self._last_grads, None
+        if tel is not None:
+            with tel.phase("numerics"):
+                self._numerics.step_boundary(step=tel.step, grads=grads)
+        else:
+            self._numerics.step_boundary(grads=grads)
+
+    def _fused_step(self, ignore_stale_grad, tel):
+        """The fused exchange + update step (trainer.py:216), in a
+        ``step`` phase. False, with nothing changed, sends the step to the
+        staged path."""
         if not _fstep.enabled() or self._update_via_kv:
             return False
         kv = self._kvstore if self._reduce_via_kv else None
@@ -153,10 +226,15 @@ class Trainer:
         idxs = [i for i, _ in pairs]
         if not _fstep.eligible(self._updaters[0], idxs, kvstore=kv):
             return False
-        if not _fstep.try_step(self._updaters[0], idxs,
-                               [p.grad() for _, p in pairs],
-                               [p.data() for _, p in pairs], kvstore=kv):
+        grads = [p.grad() for _, p in pairs]
+        with tel.phase("step"):
+            ran = _fstep.try_step(self._updaters[0], idxs, grads,
+                                  [p.data() for _, p in pairs], kvstore=kv)
+        if not ran:
+            tel._phases.pop("step", None)       # the staged record's shape
             return False
+        if self._numerics is not None:
+            self._last_grads = grads       # the SDC replay's digest
         for _, p in pairs:
             p._fresh_grad = False
         return True
@@ -175,8 +253,9 @@ class Trainer:
         if self._kvstore is not None and self._update_via_kv:
             raise MXNetError("update() when parameters are updated on "
                              "kvstore is not supported")
-        self._optimizer.rescale_grad = self._scale / batch_size
+        self._optimizer.rescale_grad = self._rescale(batch_size)
         self._apply_updates(ignore_stale_grad)
+        self._numerics_boundary()
 
     def _reduce(self):
         """One batched push of the gradients (priority -i: what the next
@@ -212,6 +291,8 @@ class Trainer:
         weights = [p.data() for _, p in pairs]
         for updater in self._updaters:
             updater.update_all(idxs, grads, weights)
+        if self._numerics is not None:
+            self._last_grads = grads       # the SDC replay's digest
         for _, p in pairs:
             p._fresh_grad = False
 

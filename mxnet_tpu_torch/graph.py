@@ -27,11 +27,13 @@ are listed by name (`_KERNEL_OPS`, `_CPU_STRUCT_OPS`).
 """
 from __future__ import annotations
 
+import time
 from collections import namedtuple
 
 import torch
 
 from . import random as _random
+from .observability import telemetry as _telemetry
 from .base import MXNetError, tuple_param
 from .ops import registry as _reg
 from .ops.conv1x1_bn import STATS_DTYPES, fuses_bn_stats
@@ -187,6 +189,7 @@ def build_graph_fn(output_entries, mode="predict"):
     from .ops import conv1x1_bn_nhwc
     from .ops.nn import _batch_norm
 
+    t_build = time.perf_counter()
     order = topo_order(output_entries)
     aux_ids = aux_var_ids(order)
     arg_nodes, aux_nodes = collect_vars(output_entries)
@@ -261,6 +264,9 @@ def build_graph_fn(output_entries, mode="predict"):
         return outs, aux_updates
 
     fn.fused_pairs = len(fused)
+    # a build is what the port compiles: ``compile.count`` in the step
+    # records (observability.telemetry)
+    _telemetry.note_compile(time.perf_counter() - t_build)
     return fn, arg_names, aux_names, needs_rng
 
 

@@ -8,9 +8,19 @@ background thread pulls batches from the training iterator and stages
 each on the module's device (`parallel.prefetch.DevicePrefetcher` over
 `stage_databatch`, depth 2, through pinned memory on a side stream),
 and a one-batch lookahead lets `prepare()` see batch k+1 while batch k
-trains and marks the last batch as such before its callbacks run. Its
-step timer, numerics guard and preemption boundary wait for the
-operational planes (ROADMAP A9).
+trains and marks the last batch as such before its callbacks run.
+
+The planes of the loop (JAX :207-300, :325-370): each batch is a step of
+a `StepTimer("module.fit")` with the phases ``forward_backward``,
+``optimizer`` and ``numerics``; the module's `NumericsGuard`
+(`module.numerics`, None under ``MXTPU_NUMERICS=0``) resolves the
+update's verdicts at the boundary, and on the first wholly skipped step
+replays the batch's forward and backward from the preserved weights, with
+the random generators rewound to their state before the step
+(`_numerics_replay`), to tell suspected SDC from a data problem; then
+`resilience.preempt.at_step_boundary()` checkpoints and stops on a
+pending preemption. A `monitor` (`mxnet_tpu_torch.monitor.Monitor`) is
+installed on the executor and printed every batch it collects.
 """
 from __future__ import annotations
 
@@ -19,12 +29,16 @@ import time
 
 import numpy as np
 
+from .. import random as _random
 from ..base import MXNetError
 from .. import metric as metric_mod
 from .. import io as mx_io
 from ..model import BatchEndParam
 from ..initializer import Uniform
 from ..ndarray import NDArray
+from ..observability.telemetry import StepTimer
+from ..resilience import numerics as _numerics
+from ..resilience.preempt import at_step_boundary
 
 
 _PARAM_SUFFIXES = ("_weight", "_bias", "_gamma", "_beta")
@@ -206,12 +220,13 @@ class BaseModule:
         ################################################################
         # training loop (reference role: base_module.py:491-560)
         ################################################################
+        step_timer = StepTimer("module.fit")
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
             eval_metric.reset()
             final_metrics = self._run_train_epoch(
                 train_data, epoch, eval_metric, monitor,
-                batch_end_callback, sparse_row_id_fn)
+                batch_end_callback, sparse_row_id_fn, step_timer)
 
             for name, val in final_metrics:
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
@@ -236,7 +251,8 @@ class BaseModule:
             train_data.reset()
 
     def _run_train_epoch(self, train_data, epoch, eval_metric, monitor,
-                         batch_end_callback, sparse_row_id_fn):
+                         batch_end_callback, sparse_row_id_fn,
+                         step_timer=None):
         """One epoch of the fit loop, with one-batch lookahead: prepare()
         sees batch k+1 while the device still works on k, and the last
         batch is known as such before its callbacks run."""
@@ -263,8 +279,27 @@ class BaseModule:
                     self.prepare(upcoming, sparse_row_id_fn=sparse_row_id_fn)
                 if monitor is not None:
                     monitor.tic()
-                self.forward_backward(batch)
-                self.update()
+                if step_timer is None:
+                    step_timer = StepTimer("module.fit")
+                step_timer.begin_step()
+                # the generators before the forward: a replay must draw
+                # the same masks as the step it replays
+                self._numerics_prestep_rng = _random.snapshot()
+                with step_timer.phase("forward_backward"):
+                    self.forward_backward(batch)
+                with step_timer.phase("optimizer"):
+                    self.update()
+                guard = self._numerics_guard()
+                if guard is not None:
+                    if _numerics.sdc_replay_enabled():
+                        guard.attach_replay(
+                            lambda b=batch: self._numerics_replay(b))
+                    with step_timer.phase("numerics"):
+                        guard.step_boundary(step=step_timer.step,
+                                            grads=self._numerics_grads())
+                # the update made the state consistent: a pending
+                # preemption checkpoints and stops here
+                at_step_boundary()
                 if isinstance(batch, list):  # pre-sliced multi-device form
                     self.update_metric(eval_metric,
                                        [b.label for b in batch],
@@ -273,6 +308,9 @@ class BaseModule:
                     self.update_metric(eval_metric, batch.label)
                 if monitor is not None:
                     monitor.toc_print()
+                step_timer.end_step(
+                    batch_size=getattr(train_data, "batch_size", None),
+                    epoch=epoch, nbatch=nbatch)
                 if is_last:
                     # read before batch callbacks, which may reset metrics
                     final_metrics = eval_metric.get_name_value()
@@ -287,6 +325,49 @@ class BaseModule:
             # from the iterator that the next epoch resets
             staged.close()
         return final_metrics
+
+    # -- the numerics guard's plumbing --------------------------------------
+    def _numerics_guard(self):
+        """This module's `NumericsGuard`, made at first use (None under
+        ``MXTPU_NUMERICS=0``)."""
+        guard = getattr(self, "_numerics_guard_obj", None)
+        if guard is None and _numerics.enabled():
+            guard = self._numerics_guard_obj = _numerics.NumericsGuard(
+                source="module.fit")
+        return guard
+
+    @property
+    def numerics(self):
+        return self._numerics_guard()
+
+    def _numerics_grads(self):
+        """The executor group's gradient tensors (the replay's digest), or
+        None without one."""
+        eg = getattr(self, "_exec_group", None)
+        ga = getattr(eg, "grad_arrays", None) if eg is not None else None
+        if not ga:
+            return None
+        out = []
+        for per_key in ga:
+            arrs = per_key if isinstance(per_key, (list, tuple)) \
+                else [per_key]
+            out.extend(a for a in arrs if a is not None)
+        return out or None
+
+    def _numerics_replay(self, batch):
+        """Re-run one batch's forward and backward from the preserved
+        pre-step weights, the generators rewound to their state before the
+        step and put back after: only corruption in the original run can
+        make the gradients differ."""
+        prestep = getattr(self, "_numerics_prestep_rng", None)
+        saved = _random.snapshot()
+        try:
+            if prestep is not None:
+                _random.restore(prestep)
+            self.forward_backward(batch)
+        finally:
+            _random.restore(saved)
+        return self._numerics_grads()
 
     # ------------------------------------------------------------------
     # parameters

@@ -30,10 +30,13 @@ version counter sees the write) rather than compute with the new value.
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from .. import autograd
+from .. import profiler as _prof
 from .. import random as _random
 from ..base import MXNetError, dtype_from_name, dtype_name, np_dtype
 from ..context import Context, context_of, resolve_device
@@ -535,6 +538,7 @@ def invoke(op, inputs, params, out=None):
             kw["out"] = None if outs is None else outs[0]._data
     if op.needs_rng:
         tensors.insert(0, _random.generator(_device_of(tensors, full)))
+    prof_t0 = time.perf_counter() if _prof._running["on"] else None
     recording = autograd.is_recording()
     prev = torch.is_grad_enabled()
     if prev != recording:
@@ -544,6 +548,8 @@ def invoke(op, inputs, params, out=None):
     finally:
         if prev != recording:
             torch.set_grad_enabled(prev)
+    if prof_t0 is not None:
+        _prof.record_op(op.name, prof_t0, time.perf_counter())
     if not isinstance(raw, tuple):
         raw = (raw,)
     vis = op.visible_outputs

@@ -6,8 +6,8 @@ or, where the port can run the program, `count_flops(fn, *args)`, which
 counts what one call computes with `torch.utils.flop_counter.
 FlopCounterMode` — and every dispatch bumps the process
 ``goodput.flops`` counter by its program's cost (`note_dispatch`). The
-per-step MFU that JAX's StepTimer derives from that counter comes with
-the port's StepTimer (ROADMAP A9); ``/debugz`` shows the costs and the
+per-step MFU is derived from that counter by `StepTimer.end_step`
+(`mfu_value`, also the ``goodput.mfu`` gauge); ``/debugz`` shows the costs and the
 peak it will divide by: ``MXTPU_PEAK_FLOPS`` when the operator knows the
 card, else the H100 SXM's dense bf16 rate on a card, or a deliberately
 modest CPU figure. Gated by the same ``MXTPU_MEMLEDGER`` switch as the
@@ -20,14 +20,16 @@ import threading
 
 import torch
 
-from .registry import counter
+from .registry import counter, gauge
 
 __all__ = ["enabled", "peak_flops", "record_cost", "cost", "count_flops",
-           "note_dispatch", "costs_snapshot"]
+           "note_dispatch", "costs_snapshot", "mfu_value"]
 
 FLOPS = counter("goodput.flops",
                 "model FLOPs dispatched (per-program costs counted by "
                 "FlopCounterMode, analytic where a call cannot run)")
+MFU = gauge("goodput.mfu",
+            "model FLOPs utilization of the last step (label source)")
 DISPATCHES = counter("goodput.dispatches",
                      "dispatches that charged the goodput FLOP counter")
 
@@ -125,6 +127,22 @@ def note_dispatch(name, n=1):
     FLOPS.inc(total)
     DISPATCHES.inc(n)
     return total
+
+
+def mfu_value(step_flops, step_time, source=None):
+    """`step_flops` over the step's peak-FLOP envelope, clamped to [0, 1];
+    also sets the ``goodput.mfu`` gauge. None on degenerate input."""
+    if not step_flops or not step_time or step_time <= 0:
+        return None
+    peak = peak_flops()
+    if not peak or peak <= 0:
+        return None
+    mfu = min(1.0, float(step_flops) / (float(step_time) * peak))
+    if source is not None:
+        MFU.set(mfu, source=source)
+    else:
+        MFU.set(mfu)
+    return mfu
 
 
 def costs_snapshot():

@@ -10,7 +10,8 @@ also keeps ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory,
 spills) beside its library as ``<name>.log``.
 
 Nothing is built when the package is imported: only a kernel's first
-launch, or `build_all()`, runs the compiler.
+launch, or `build_all()`, runs the compiler. Each source built counts
+in ``compile.count``/``compile.seconds`` (its nvcc wall time).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
 
@@ -84,9 +86,12 @@ def build_all():
             cmd = [_nvcc(), *_FLAGS, "-o", tmp, src]
             pending.append((name, so, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        from ..observability.telemetry import note_compile
+        t0 = time.perf_counter()
         failed = []
         for name, so, tmp, proc in pending:
             log = proc.communicate()[0].decode(errors="replace")
+            note_compile(time.perf_counter() - t0)
             with open(os.path.join(out, name + ".log"), "w") as f:
                 f.write(log)
             if proc.returncode:

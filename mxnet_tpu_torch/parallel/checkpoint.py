@@ -92,10 +92,14 @@ _MIGRATABLE = {"gc_residuals", "opt_state"}
 
 def _gang_barrier():
     """Every rank of the process group reached this point, within
-    ``MXTPU_BARRIER_TIMEOUT_S`` (then `DeadlineExceeded`)."""
+    ``MXTPU_BARRIER_TIMEOUT_S`` (then `DeadlineExceeded`; in a supervised
+    gang, `PeerLost` as soon as a peer is dead)."""
+    import torch.distributed as dist
+    from ..resilience.supervisor import peer_checker
     from .kvstore_dist import bounded_barrier, rank_device
     bounded_barrier(getenv("MXTPU_BARRIER_TIMEOUT_S", 600.0),
-                    "checkpoint commit barrier", rank_device())
+                    "checkpoint commit barrier", rank_device(),
+                    peer_checker(exclude_rank=dist.get_rank()))
 
 
 def _dcp(fn, state, path):

@@ -31,7 +31,19 @@ SGD's kernel reads it as its veto flag, and aux and Adam's state are
 gated by `torch.where`. A capture or replay that fails raises; nothing
 falls back to the eager step. ``MXTPU_CUDA_GRAPH=0`` (read at
 construction) gives the eager step, the counterpart of
-``jax.disable_jit``; the CPU always runs eager.
+``jax.disable_jit``; the CPU always runs eager. A capture counts as a
+compile (``compile.count``/``compile.seconds``, the step records').
+
+The planes (JAX :278-300, :514, :727): `step` and `step_many` first pass
+the preemption boundary (`resilience.preempt.at_step_boundary`: the
+``worker.kill`` chaos site, and a pending SIGTERM's save and
+`TrainingPreempted` under a `PreemptionGuard`), outside the captured
+graph; the trainer's resident parameters, BatchNorm statistics and
+optimizer state are cells of the memory ledger (`observability.memory`,
+model "trainer", subsystem "sharded_trainer"). No chaos corruption site
+sits in the step, as in the JAX package: a host-side draw at capture
+would be baked into every replay (the sites are the fused update's and
+the fused step's, which run eagerly).
 
 Memory: every graph of a trainer is captured into ONE private memory
 pool, made in ``__init__``; replays run in order on one stream, so the
@@ -127,9 +139,11 @@ from ..gluon.block import collect_params
 from ..gluon.nn.basic_layers import Dropout
 from ..ndarray import NDArray
 from ..gradient_compression import dequantize_2bit, quantize_2bit
+from ..observability import telemetry as _telemetry
 from ..ops import SGDMomentumPlan
 from ..ops.nn import global_batch_stats
 from ..resilience import numerics as _num
+from ..resilience.preempt import at_step_boundary
 from .bucketing import GradBucketer
 from .fused_step import (ZERO1_ALLGATHER_SECONDS, ZERO1_SHARD_PARAMS,
                          zero1_enabled)
@@ -519,6 +533,24 @@ class ShardedTrainer:
             _fold_rank(_random.generator(self._dev),
                        self._mesh.axis_index(self._dp))
         self._step_count = 0
+        self._register_ledger_bytes()
+
+    def _register_ledger_bytes(self):
+        """The memory ledger's cells for the trainer's resident state
+        (JAX :280-300): params, aux and optimizer state, this rank's
+        tensors (ZeRO-1 blocks where sharded)."""
+        from ..observability import memory as _memory
+        if not _memory.enabled():
+            return
+        _memory.set_bytes("trainer", "sharded_trainer", "params",
+                          _memory.nbytes(self._params))
+        if self._aux:
+            _memory.set_bytes("trainer", "sharded_trainer", "aux",
+                              _memory.nbytes(self._aux))
+        opt_bytes = _memory.nbytes(self._opt_state)
+        if opt_bytes:
+            _memory.set_bytes("trainer", "sharded_trainer", "opt_state",
+                              opt_bytes)
 
     # -- layouts on the mesh ------------------------------------------------
     def _dp_axis_name(self):
@@ -863,6 +895,7 @@ class ShardedTrainer:
         state back as it was, and capture the step into a CUDA graph over
         static copies of `inputs`."""
         dev = self._dev
+        t_capture = time.perf_counter()
         static = [x.clone() for x in inputs]
         state = self._state_tensors()
         saved = [t.clone() for t in state]
@@ -885,6 +918,8 @@ class ShardedTrainer:
             raise MXNetError("CUDA graph capture of the train step failed "
                              "(MXTPU_CUDA_GRAPH=0 runs it eagerly): %s"
                              % (err,)) from err
+        # the warm-up and the capture are this path's compile
+        _telemetry.note_compile(time.perf_counter() - t_capture)
         return _Captured(graph, static, loss, ok)
 
     def _graph_for(self, inputs, guard):
@@ -911,7 +946,10 @@ class ShardedTrainer:
         whose gradients are not all finite is skipped: parameters,
         optimizer state and BatchNorm statistics stay bit-identical, and
         the verdict is recorded as where="step" without a host read. On
-        the card one graph replay (one ``train.step.dispatches``)."""
+        the card one graph replay (one ``train.step.dispatches``). A
+        pending preemption checkpoints and stops first
+        (`resilience.preempt.at_step_boundary`)."""
+        at_step_boundary()
         inputs = self._stage(batch_and_labels)
         guard = _num.enabled()
         if self._graph_on:
@@ -941,6 +979,7 @@ class ShardedTrainer:
                              "compression; call step() per batch")
         if int(unroll) < 1:
             raise MXNetError("step_many: unroll must be >= 1")
+        at_step_boundary()
         inputs = self._stage(batch_and_labels)
         n = int(n_steps)
         losses = torch.empty(n, dtype=torch.float32, device=self._dev)

@@ -13,6 +13,12 @@ host work between them:
   without one, one flat per dtype), allocated once per layout;
 - at ``nproc > 1`` one ``all_reduce`` per flat, all started before the
   first is waited on; none at one process;
+- the ``grad.post`` chaos site (`resilience.chaos.corrupt_tensors`, JAX
+  :352) draws once a step over the exchanged flats, in place (they are
+  the step's own copies), and ``weight.post`` (JAX :583) once per update
+  group over the weights it wrote. Both run on the host's side of the
+  launches: the fused step is not a captured graph, so each step draws
+  anew; a seeded draw can never be baked into a replay;
 - the all-finite verdict over the flats (`finite_all`) is a device flag
   that gates the update in-stream: a step with a non-finite gradient
   leaves weights and states bit-identical. The host never reads it
@@ -71,9 +77,10 @@ from .. import optimizer as opt
 from ..base import getenv
 from ..observability import registry as _obs
 from ..resilience import numerics as _num
+from ..resilience.chaos import corrupt_tensors
 from .bucketing import GradBucketer, finite_all
 from .fused_update import (FUSED_GROUPS, STEP_DISPATCHES, _SUPPORTED,
-                           FusedUpdater, _Entry)
+                           FusedUpdater, _Entry, corrupt_written)
 
 __all__ = ["FusedTrainStep", "ZERO1_ALLGATHER_SECONDS", "ZERO1_SHARD_PARAMS",
            "eligible", "enabled", "try_step", "zero1_enabled"]
@@ -255,6 +262,7 @@ class FusedTrainStep:
             for p in pending:
                 p.result()
             dispatches += len(pending)
+        corrupt_tensors("grad.post", gf.flats)
         ok = None
         if _num.enabled():
             oks = [finite_all(f) for f in gf.flats]
@@ -270,6 +278,7 @@ class FusedTrainStep:
                     up._run_sgd(plans, group, lr, wd, ok)
                 else:
                     up._run_foreach(math, group, lr, wd, t, ok)
+                corrupt_written(group)
                 FUSED_GROUPS.inc()
                 opt._UPDATE_DISPATCHES.inc()
                 STEP_DISPATCHES.inc()
@@ -308,6 +317,7 @@ class FusedTrainStep:
                                               whole, group))
                 STEP_DISPATCHES.inc()
                 dispatches += 1
+            corrupt_tensors("grad.post", blocks)
             ok = None
             if _num.enabled():
                 bad = torch.stack([(~finite_all(b)) for b in blocks]).any()
@@ -326,6 +336,7 @@ class FusedTrainStep:
                     up._run_sgd(plans, [one], lr, wd, ok)
                 else:
                     up._run_foreach(math, [one], lr, wd, t, ok)
+                corrupt_tensors("weight.post", [mine])
                 all_gather_(w, mine.clone(), group)
                 for e, v in zip(grp, zs.unpack(w)):
                     e.pack_w.copy_(v)

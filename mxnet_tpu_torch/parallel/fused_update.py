@@ -30,7 +30,17 @@ The verdict is a device flag and the host never reads it here: the SGD
 kernel reads it, and a `_foreach` group's writes go through
 ``torch.where`` on it. One verdict per `update_all` goes to
 `resilience.numerics.record_flag` (where="update"), to be read when the
-guard drains its verdicts.
+guard drains its verdicts; leftovers that take the per-key path run
+outside it and are counted by `resilience.numerics.note_unguarded`
+(a partly unguarded step never claims a sound SDC replay).
+
+Chaos corruption sites (`resilience.chaos.corrupt_tensors`, JAX :506,
+:557): ``grad.post`` on each group's gradients, read as one flat, before
+the verdict (a ``kind=nan`` there is skipped by the guard), and
+``weight.post`` on the weights the group wrote (a ``kind=bitflip`` there
+is the silent corruption only the divergence watchdog can see). They run
+eagerly on the host's side of each launch, outside any captured graph,
+so each step draws anew. One dict lookup each when nothing is armed.
 
 A `parallel.fused_step.FusedTrainStep` attached to the updater
 (`_fused_step_owner`) shares its groups, its plans and its states: its
@@ -47,6 +57,7 @@ from ..base import getenv
 from ..observability import registry as _obs
 from ..ops.sgd_momentum import cached_mxnet_plan
 from ..resilience import numerics as _num
+from ..resilience.chaos import corrupt_tensors
 
 __all__ = ["FusedUpdater", "STEP_DISPATCHES", "all_finite", "fused_enabled"]
 
@@ -66,6 +77,27 @@ _SUPPORTED = {
     opt.RMSProp: (lambda o: 3 if o.centered else 1, opt._rmsprop_math),
     opt.AdaGrad: (lambda o: 1, opt._adagrad_math),
 }
+
+
+def corrupt_grads(group):
+    """The ``grad.post`` site over a group's gradients, read as one flat.
+    The caller's gradient stays as it was: the entry takes a corrupted
+    copy, as JAX corrupts its packed copy."""
+    hit = corrupt_tensors("grad.post", [e.grad for e in group],
+                          inplace=False)
+    if hit is not None:
+        group[hit[0]].grad = hit[1]
+
+
+def corrupt_written(group):
+    """The ``weight.post`` site over the weights (masters under
+    multi-precision) a group wrote; a corrupted master rounds into its
+    weight again."""
+    if corrupt_tensors("weight.post", [e.pack_w for e in group]) is None:
+        return
+    for e in group:
+        if e.master is not None:
+            e.weight.copy_(e.master)
 
 
 def fused_enabled():
@@ -194,22 +226,28 @@ class FusedUpdater(opt.Updater):
         entries, leftovers = self._collect(n_states(self.optimizer),
                                            indices, grads, weights)
         guard = _num.enabled()
+        if leftovers and guard:
+            _num.note_unguarded(len(leftovers))
         oks = []
         plans, self._plans = self._plans, {}
         with torch.no_grad():
             for group, lr, wd, t in self._groups(entries):
+                corrupt_grads(group)
                 ok = all_finite([e.grad for e in group]) if guard else None
                 if math is None:
                     self._run_sgd(plans, group, lr, wd, ok)
                 else:
                     self._run_foreach(math, group, lr, wd, t, ok)
+                corrupt_written(group)
                 FUSED_GROUPS.inc()
                 opt._UPDATE_DISPATCHES.inc()
                 STEP_DISPATCHES.inc()
                 oks.append(ok)
         if guard and oks:
             _num.record_flag(oks[0] if len(oks) == 1
-                             else torch.stack(oks).all(), where="update")
+                             else torch.stack(oks).all(),
+                             keys=[e.index for e in entries],
+                             where="update")
         for i, g, w in leftovers:
             self(i, g, w)
 

@@ -47,9 +47,26 @@ rank 0 binds it (another process can take a probed port in that gap).
 An explicit ``host:port`` behaves as JAX's.
 
 Timeouts, as JAX's: ``MXTPU_DIST_INIT_TIMEOUT_S`` bounds the rendezvous
-alone (the wait for a published port included); `barrier` waits at most ``MXTPU_BARRIER_TIMEOUT_S`` (default 600)
-and a bucket's collective at most ``MXTPU_WATCHDOG_COLLECTIVE_S`` (default
-0: the group's own timeout), then raises `DeadlineExceeded`.
+alone (the wait for a published port included), and the init watchdog
+(`HealthWatchdog.guard_init`, ``MXTPU_WATCHDOG_INIT_S``) bounds each
+attempt from outside, on a helper thread; `barrier` waits at most
+``MXTPU_BARRIER_TIMEOUT_S`` (default 600) and a bucket's collective at
+most ``MXTPU_WATCHDOG_COLLECTIVE_S`` (default 0: the group's own
+timeout), then raises `DeadlineExceeded`.
+
+The planes around the rendezvous (JAX :83-200): an NCCL rank holds the
+device lease of its card (`resilience.lease.hold`, at the lease path
+suffixed with ``.cuda<index>``) before it dials the coordinator, unless
+``MXTPU_LEASE=0``; gloo ranks share their devices and take none. Chaos
+sites ``dist.init`` (each rendezvous attempt) and ``kvstore.push`` (each
+bucket, before its collective). In a supervised gang (``MXTPU_GANG_DIR``)
+the rank starts its heartbeat once it knows its rank, and every
+collective and barrier polls the peers' heartbeats while it waits
+(`resilience.supervisor.peer_checker`, every
+``MXTPU_GANG_PEER_POLL_S``): a dead peer raises `PeerLost` naming it,
+within seconds, whatever the collective's budget; a collective that
+errors while a peer is dead raises `PeerLost` too. With
+``MXTPU_METRICS_PORT`` the rank starts its ``/metricsz`` server.
 
 Counters: ``kvstore.allreduce.{bytes,calls,seconds}`` (this process's
 bytes entering each collective: packed words when compressed),
@@ -71,10 +88,14 @@ from ..base import MXNetError, getenv
 from ..context import Context, resolve_device
 from ..kvstore import (KVStore, _key_value, _priority_order, _sum, _values)
 from ..observability import registry as _obs
+from ..resilience import lease as _lease
 from ..resilience import numerics as _num
+from ..resilience import supervisor as _sup
 from ..resilience.atomic import atomic_write
+from ..resilience.chaos import InjectedFailure, chaos_point
 from ..resilience.retry import (DeadlineExceeded, RetryPolicy,
                                 TransientError, retry_call)
+from ..resilience.watchdog import HealthWatchdog
 from .bucketing import (BUCKET_COUNT, BUCKET_FILL, BUCKET_KEYS,
                         PACK_SECONDS, UNPACK_SECONDS, GradBucketer,
                         finite_all)
@@ -195,7 +216,21 @@ def init_distributed(coordinator_address=None, num_processes=None,
                 "MXTPU_DIST_PORT_FILE) through which rank 0 publishes the "
                 "port it binds" % coordinator_address)
 
-    def _attempt():
+    if backend == "nccl" and _lease.lease_wanted(device):
+        # a rank that owns its card takes the card's lease before it
+        # dials the coordinator, so a wedged earlier holder is reclaimed
+        _lease.hold(what="train", path="%s.cuda%d" % (
+            _lease.default_lease_path(), device.index))
+    watchdog = HealthWatchdog()
+    # the watchdog is a belt over the store's own timeout: it trips only
+    # past that budget
+    budget = store_timeout.total_seconds() + 30.0
+    guard_t = max(watchdog.init_timeout_s, budget) \
+        if watchdog.init_timeout_s > 0 else 0.0
+
+    def _rendezvous():
+        if device.type == "cuda":
+            torch.cuda.set_device(device)     # the helper thread's card
         if url.port != 0:
             # multi_tenant: a retry in this process reuses rank 0's server
             store = dist.TCPStore(url.hostname, url.port, world,
@@ -216,53 +251,98 @@ def init_distributed(coordinator_address=None, num_processes=None,
         dist.init_process_group(backend, store=store, world_size=world,
                                 rank=rank, **kwargs)
 
+    def _attempt():
+        chaos_point("dist.init")
+        watchdog.guard_init(_rendezvous, what="rendezvous at %s (rank %d "
+                            "of %d)" % (coordinator_address, rank, world),
+                            timeout_s=guard_t)
+
     retry_call(_attempt, policy=RetryPolicy(
         max_attempts=getenv("MXTPU_DIST_INIT_RETRIES", 3),
         base_delay=getenv("MXTPU_DIST_INIT_BACKOFF_S", 1.0),
         max_delay=30.0,
         retry_on=(TransientError, ConnectionError, TimeoutError,
                   getattr(dist, "DistStoreError", TransientError)),
+        # a tripped watchdog is never retried: the wedged attempt still
+        # runs on its thread
+        give_up_on=(InjectedFailure, DeadlineExceeded),
         what="dist.init"))
+    if _sup.gang_dir():
+        # peers can prove this rank dead in seconds from now on
+        _sup.ensure_rank_heartbeat(rank)
+    from ..observability import httpz as _httpz
+    _httpz.maybe_start()
 
 
-def wait_bounded(work, timeout_s, what):
+def _peer_poll_s():
+    return max(0.05, float(getenv("MXTPU_GANG_PEER_POLL_S", 0.5)))
+
+
+def _lost(peer_check, err):
+    """A collective's error while a peer is dead is the dead peer:
+    `PeerLost`, the error chained; otherwise the error."""
+    if peer_check is not None:
+        try:
+            peer_check()
+        except _sup.PeerLost as lost:
+            raise lost from err
+    raise err
+
+
+def wait_bounded(work, timeout_s, what, peer_check=None):
     """Wait for a collective's `work`; with `timeout_s` > 0, at most that
     long, then raise `DeadlineExceeded` naming `what` and the budget (the
-    collective is left to the backend). The host polls
+    collective is left to the backend). With `peer_check` (a supervised
+    gang) the wait also polls it, deadline or not. The host polls
     ``work.is_completed()`` and calls ``wait()`` once it is done: NCCL's
     ``wait()`` of a barrier synchronizes the host with the barrier's
     stream, whatever its timeout (ROADMAP C11). An error raised by the
-    collective (a peer that closed its connection) propagates as it
-    is."""
-    if timeout_s <= 0:
+    collective propagates as it is, or as `PeerLost` when a peer is
+    dead."""
+    if timeout_s <= 0 and peer_check is None:
         work.wait()
         return
-    _poll(work, time.monotonic() + timeout_s, timeout_s, what)
+    deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+    _poll(work, deadline, timeout_s, what, peer_check)
 
 
-def _poll(work, deadline, timeout_s, what):
-    while not work.is_completed():
-        left = deadline - time.monotonic()
-        if left <= 0:
-            raise DeadlineExceeded("%s did not complete within %gs"
-                                   % (what, timeout_s))
-        time.sleep(min(0.005, left))
-    work.wait()
+def _poll(work, deadline, timeout_s, what, peer_check=None):
+    next_check = time.monotonic() + _peer_poll_s()
+    try:
+        while not work.is_completed():
+            now = time.monotonic()
+            if peer_check is not None and now >= next_check:
+                peer_check()
+                next_check = now + _peer_poll_s()
+            if deadline is not None and now >= deadline:
+                if peer_check is not None:
+                    peer_check()      # name the culprit, if there is one
+                raise DeadlineExceeded("%s did not complete within %gs"
+                                       % (what, timeout_s))
+            time.sleep(0.005 if deadline is None
+                       else min(0.005, max(0.0, deadline - now)))
+        work.wait()
+    except (_sup.PeerLost, DeadlineExceeded):
+        raise
+    except Exception as err:      # noqa: BLE001 - a transport error
+        _lost(peer_check, err)
 
 
-def bounded_barrier(timeout_s, what, device=None):
+def bounded_barrier(timeout_s, what, device=None, peer_check=None):
     """`torch.distributed.barrier` of the default group within `timeout_s`
     seconds (> 0), else `DeadlineExceeded` naming `what`. The barrier is
     started on a helper thread: NCCL sets a communicator's connections up
     on the host at its first collective, which blocks until every peer
     joins, so a peer that never comes would hold the caller inside the
-    call itself (ROADMAP C11, seen on two cards). Past the deadline the
-    helper is left behind, blocked, as the collective is; an error the
-    barrier raised is raised here."""
-    if timeout_s <= 0:
+    call itself (ROADMAP C11, seen on two cards). The caller waits for
+    the helper in slices and runs `peer_check` between them, so a dead
+    peer raises `PeerLost` while the helper is still blocked. Past the
+    deadline the helper is left behind, blocked, as the collective is;
+    an error the barrier raised is raised here."""
+    if timeout_s <= 0 and peer_check is None:
         dist.barrier()
         return
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
     box = {}
 
     def start():
@@ -275,13 +355,21 @@ def bounded_barrier(timeout_s, what, device=None):
     helper = threading.Thread(target=start, daemon=True,
                               name="mxtpu-barrier")
     helper.start()
-    helper.join(timeout_s)
-    if helper.is_alive():
-        raise DeadlineExceeded("%s did not complete within %gs"
-                               % (what, timeout_s))
+    while True:
+        slice_s = _peer_poll_s() if peer_check is not None else timeout_s
+        if deadline is not None:
+            slice_s = min(slice_s, max(0.0, deadline - time.monotonic()))
+        helper.join(slice_s)
+        if not helper.is_alive():
+            break
+        if peer_check is not None:
+            peer_check()
+        if deadline is not None and time.monotonic() >= deadline:
+            raise DeadlineExceeded("%s did not complete within %gs"
+                                   % (what, timeout_s))
     if "error" in box:
-        raise box["error"]
-    _poll(box["work"], deadline, timeout_s, what)
+        _lost(peer_check, box["error"])
+    _poll(box["work"], deadline, timeout_s, what, peer_check)
 
 
 class _Pending:
@@ -289,14 +377,18 @@ class _Pending:
     ``MXTPU_WATCHDOG_COLLECTIVE_S`` when that is set) and returns the
     reduced flat on the flat's device."""
 
-    __slots__ = ("_work", "_done", "_t0", "_timeout_s", "_what")
+    __slots__ = ("_work", "_done", "_t0", "_timeout_s", "_what",
+                 "_peer_check")
 
-    def __init__(self, work, done, t0, timeout_s=0.0, what="collective"):
+    def __init__(self, work, done, t0, timeout_s=0.0, what="collective",
+                 peer_check=None):
         self._work, self._done, self._t0 = work, done, t0
         self._timeout_s, self._what = timeout_s, what
+        self._peer_check = peer_check
 
     def result(self):
-        wait_bounded(self._work, self._timeout_s, self._what)
+        wait_bounded(self._work, self._timeout_s, self._what,
+                     self._peer_check)
         out = self._done()
         _AR_SECONDS.observe(time.perf_counter() - self._t0)
         return out
@@ -318,6 +410,9 @@ class DistKVStore(KVStore):
         # 0: a collective waits as long as the group's own timeout
         self._collective_timeout_s = getenv("MXTPU_WATCHDOG_COLLECTIVE_S",
                                             0.0)
+        # in a supervised gang every wait polls the peers' heartbeats
+        self._peer_check = _sup.peer_checker(exclude_rank=self.rank) \
+            if self._nproc > 1 else None
         self.last_wire_bytes = 0
 
     def set_bucket_size_mb(self, mb):
@@ -350,10 +445,11 @@ class DistKVStore(KVStore):
             host = flat.cpu()
             work = dist.all_reduce(host, async_op=True)
             return _Pending(work, lambda: flat.copy_(host), t0,
-                            self._collective_timeout_s, what)
+                            self._collective_timeout_s, what,
+                            self._peer_check)
         work = dist.all_reduce(flat, async_op=True)
         return _Pending(work, lambda: flat, t0, self._collective_timeout_s,
-                        what)
+                        what, self._peer_check)
 
     def _allgather_async(self, words, finish):
         """Start an all-gather of this rank's int32 `words`; `finish`
@@ -369,7 +465,8 @@ class DistKVStore(KVStore):
         return _Pending(work, lambda: finish(
             [p.to(words.device) for p in parts]), t0,
             self._collective_timeout_s,
-            "all-gather of %d bytes" % self.last_wire_bytes)
+            "all-gather of %d bytes" % self.last_wire_bytes,
+            self._peer_check)
 
     def _dequant_sum(self, parts, shape, dtype):
         """Every rank's words dequantized and added in rank order."""
@@ -442,14 +539,17 @@ class DistKVStore(KVStore):
         for bucket, pending in issued:
             out = pending.result()
             if guard:
-                _num.record_flag(finite_all(out), where="exchange")
+                _num.record_flag(finite_all(out), keys=bucket.keys,
+                                 where="exchange")
             t0 = time.perf_counter()
             for k, sub in zip(bucket.keys, bucket.unpack(out)):
                 self._apply_merged(k, sub)
             UNPACK_SECONDS.observe(time.perf_counter() - t0)
 
     def _issue_bucket(self, bucket, merged):
-        """Pack one bucket and start its collective (the retry unit)."""
+        """Pack one bucket and start its collective (the retry unit; the
+        ``kvstore.push`` chaos site comes before any mutation)."""
+        chaos_point("kvstore.push")
         t0 = time.perf_counter()
         flat = bucket.pack([merged[k] for k in bucket.keys])
         PACK_SECONDS.observe(time.perf_counter() - t0)
@@ -485,4 +585,4 @@ class DistKVStore(KVStore):
         if self._nproc > 1:
             bounded_barrier(getenv("MXTPU_BARRIER_TIMEOUT_S", 600.0),
                             "kvstore barrier across %d processes"
-                            % self._nproc, self.device)
+                            % self._nproc, self.device, self._peer_check)

@@ -11,7 +11,7 @@ import threading
 
 import torch
 
-__all__ = ["generator", "seed"]
+__all__ = ["generator", "restore", "seed", "snapshot"]
 
 _lock = threading.Lock()
 _seed = [None]
@@ -42,3 +42,20 @@ def generator(device="cpu"):
                 gen.manual_seed(_seed[0])
             _gens[dev] = gen
         return gen
+
+
+def snapshot():
+    """The state of every generator made so far, {device: state}: what
+    `restore` rewinds to (the numerics guard's replay of a step redraws
+    the step's masks from it)."""
+    with _lock:
+        return {dev: gen.get_state() for dev, gen in _gens.items()}
+
+
+def restore(states):
+    """Put the generators back to a `snapshot`."""
+    with _lock:
+        for dev, state in states.items():
+            gen = _gens.get(dev)
+            if gen is not None:
+                gen.set_state(state)

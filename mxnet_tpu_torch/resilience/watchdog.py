@@ -13,12 +13,15 @@ Python); later guards fall back to ephemeral threads while it is held.
 
 Every trip is counted (`resilience.watchdog.trips{kind=dispatch}`) and,
 when ``MXTPU_TELEMETRY`` streams, recorded as a `source="resilience"`
-`watchdog_trip` event. JAX's init and collective guards are not ported:
-the port's rendezvous and barriers carry their own deadlines
-(`parallel.kvstore_dist`); they come with ROADMAP A9's init watchdog.
+`watchdog_trip` event. `guard_init()` bounds the distributed
+rendezvous the same way (kind=init, raising `DeadlineExceeded` with the
+diagnostics), on the same worker. The JAX package's collective guard has
+its port in `parallel.kvstore_dist`, whose collectives and barriers poll
+their own deadlines and the gang's peer check.
 
-Env knob: ``MXTPU_SERVE_DISPATCH_TIMEOUT_S`` — the serving-dispatch
-deadline (0, the default: the plain direct call, bit-identical).
+Env knobs: ``MXTPU_SERVE_DISPATCH_TIMEOUT_S`` — the serving-dispatch
+deadline (0, the default: the plain direct call, bit-identical);
+``MXTPU_WATCHDOG_INIT_S`` — the rendezvous deadline (180; 0 unguarded).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from ..context import DeviceUnreachable
 from ..observability import registry as _obs
 from ..observability import telemetry as _tele
 from . import lease as _lease
+from .retry import DeadlineExceeded
 
 __all__ = ["DeviceUnreachable", "HealthWatchdog", "diagnostics"]
 
@@ -89,9 +93,12 @@ class HealthWatchdog:
     instance per replica is fine — state is the budget and the guard
     worker."""
 
-    def __init__(self, lease_path=None):
+    def __init__(self, lease_path=None, init_timeout_s=None):
         self.dispatch_timeout_s = float(
             getenv("MXTPU_SERVE_DISPATCH_TIMEOUT_S", 0.0))
+        self.init_timeout_s = float(
+            init_timeout_s if init_timeout_s is not None
+            else getenv("MXTPU_WATCHDOG_INIT_S", 180.0))
         self.lease_path = lease_path
         # persistent guard worker (a fresh thread per dispatch would tax
         # the serving hot path); lazily started, single-slot
@@ -167,6 +174,24 @@ class HealthWatchdog:
                 "%s did not complete within %.6gs — the device "
                 "dispatch is wedged (the call still blocks a daemon "
                 "thread)" % (what, t), diag)
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    def guard_init(self, fn, what="backend init", timeout_s=None):
+        """Run init-shaped work (the rendezvous, which can block forever
+        on a dead coordinator) on the guard worker under a deadline; a
+        trip raises `DeadlineExceeded` carrying the diagnostics (the call
+        stays blocked on its thread). `timeout_s` <= 0: the plain call."""
+        t = float(timeout_s if timeout_s is not None
+                  else self.init_timeout_s)
+        if t <= 0:
+            return fn()
+        box, done = self._submit(fn, what)
+        if not done.wait(timeout=t):
+            diag = self._trip("init", what, t)
+            raise DeadlineExceeded("%s did not complete within %.6gs\n%s"
+                                   % (what, t, diag))
         if "error" in box:
             raise box["error"]
         return box.get("result")

@@ -35,7 +35,7 @@ Chaos sites: `serving.infer`, `serving.decode`, `gateway.admit`,
 `engine.dispatch` (+ `serving.replica<k>.dispatch`). Metrics:
 `serving.*` in the observability registry; per-batch/per-step JSONL
 records ride the ``MXTPU_TELEMETRY`` stream. The JAX package's AOT
-artifacts (the compile plane, ROADMAP A9) are not ported.
+artifacts (the compile plane, ROADMAP A9b) are not ported.
 """
 from .engine import InferenceEngine, bucket_sizes, resolve_serve_dtype
 from .batcher import (DynamicBatcher, InferenceRequest, RequestRejected,

@@ -36,7 +36,7 @@ to ``goodput.flops``; prefill and step run under the ledger's OOM guard,
 prefill under the request's trace annotation. ``serving.decode.compiles``
 counts each decode program (a prefill bucket, admit, step) at its first
 dispatch. The JAX engine's AOT export/load is not ported: `aot_export`
-and `aot_load` raise `MXNetError` naming ROADMAP A9's compile plane.
+and `aot_load` raise `MXNetError` naming ROADMAP A9b's compile plane.
 """
 from __future__ import annotations
 

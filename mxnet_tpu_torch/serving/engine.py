@@ -29,7 +29,7 @@ every dispatch as the JAX engine's `_charge_goodput` (engine.py:729)
 charges its per-program cost.
 
 The JAX engine's AOT export/load (`compile/aot`) is not ported:
-`aot_export`/`aot_load` raise `MXNetError` naming ROADMAP A9's compile
+`aot_export`/`aot_load` raise `MXNetError` naming ROADMAP A9b's compile
 plane.
 
 Metrics: `serving.engine.compiles` and `serving.engine.infer.seconds`.
@@ -62,7 +62,7 @@ _INFER_SECONDS = _obs.histogram(
 
 _AOT_MSG = ("ahead-of-time executables are the compile plane's "
             "(compile/aot), which the port has not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP A9b)")
 
 
 def resolve_serve_dtype(dtype):

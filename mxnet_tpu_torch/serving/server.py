@@ -27,7 +27,7 @@ A server on a CUDA device holds the process-wide device lease
 (`resilience.lease`) from `start` to the end of its drain; a CPU server
 takes none unless ``MXTPU_LEASE=1``. The JAX server's AOT artifact store
 (`artifacts=`, ``MXTPU_AOT_STORE``) and its cold-start record belong to
-the compile plane, which is not ported (ROADMAP A9): asking for a store
+the compile plane, which is not ported (ROADMAP A9b): asking for a store
 raises `MXNetError`; without one the server starts as JAX's does.
 """
 from __future__ import annotations

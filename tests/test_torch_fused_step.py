@@ -199,13 +199,16 @@ def test_non_finite_gradient_skips_the_step_bit_identically(monkeypatch):
     numerics.drain_flags()
     before = _params(net)
     states = {i: s.clone() for i, s in tr._updaters[0].states.items()}
+    skipped = numerics.SKIPPED.total()
     _port_step(net, tr, 1, bad=True)
     for a, b in zip(_params(net), before):
         assert torch.equal(a, b)
     for i, s in tr._updaters[0].states.items():
         assert torch.equal(s, states[i]), i
-    guard = numerics.drain_flags()
-    assert guard["skipped_steps"] == 1 and guard["total"] == 1
+    # one verdict (the fused step's), read at the step's boundary
+    guard = tr.numerics.last_report
+    assert guard["skipped_steps"] == 1 and guard["bad"] == 1
+    assert numerics.SKIPPED.total() == skipped + 1
     _port_step(net, tr, 2)
     assert not any(torch.equal(a, b) for a, b in zip(_params(net), before))
 

@@ -189,6 +189,7 @@ def test_three_steps_match_the_jax_trainer(setup, kv):
                                      kv == "device_update_on_kvstore")
     _, _, x, y = setup
     lrs = []
+    skipped = numerics.SKIPPED.total()
     for step in range(3):
         want = _jax_step(jnet, jtr, x, y)
         got = _port_step(tnet, ttr, x, y)
@@ -197,8 +198,11 @@ def test_three_steps_match_the_jax_trainer(setup, kv):
         lrs.append(ttr.learning_rate)
         assert ttr.learning_rate == jtr.learning_rate
     assert lrs == [0.1, 0.05, 0.025]     # lr changes every step
-    guard = numerics.drain_flags()
-    assert guard["total"] == 3 and guard["skipped_steps"] == 0
+    # the trainer's guard read each step's verdicts at its boundary
+    assert ttr.numerics.last_report == {"step": 2, "bad": 0, "anomalies": 0,
+                                        "skipped_steps": 0, "sdc": None}
+    assert numerics.pending_flags() == 0
+    assert numerics.SKIPPED.total() == skipped
 
 
 def test_ignore_stale_grad_updates_only_fresh_parameters(setup):
@@ -320,13 +324,16 @@ def test_non_finite_gradient_skips_the_update_bit_identically(setup):
     states = {i: s.clone() for i, s in _updater(tr).states.items()}
     bad = x.copy()
     bad[0, 0, 0, 0] = np.nan
+    skipped = numerics.SKIPPED.total()
     assert not np.isfinite(_port_step(net, tr, bad, y)).all()
     for k, v in params.items():
         assert torch.equal(net.collect_params()[k].data(), v), k
     for i, s in states.items():
         assert torch.equal(_updater(tr).states[i], s), i
-    guard = numerics.drain_flags()
+    # the trainer's guard resolved the verdict at the step's boundary
+    guard = tr.numerics.last_report
     assert guard["skipped_steps"] == 1 and guard["anomalies"] == 1
+    assert numerics.SKIPPED.total() == skipped + 1
     assert np.isfinite(_port_step(net, tr, x, y)).all()
 
 

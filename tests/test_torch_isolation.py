@@ -409,7 +409,9 @@ try:
             assert ck.restore_latest(other) == 2
         assert all(torch.equal(a, b) for a, b in zip(
             st.params.values(), other.params.values()))
-    rec = [json.loads(l) for l in open(os.environ["MXTPU_TELEMETRY"])]
+    # the trainers' memory-ledger cells are records of their own
+    rec = [r for r in map(json.loads, open(os.environ["MXTPU_TELEMETRY"]))
+           if r.get("source") != "memory"]
     assert rec[0]["event"] == "ckpt_commit" and rec[0]["step"] == 2
     assert chaos.parse_spec("checkpoint.save:p=0.5,kind=raise") == {
         "checkpoint.save": {"p": 0.5, "kind": "raise"}}

@@ -1,6 +1,6 @@
 """The port's distributed KVStore (mxnet_tpu_torch/parallel/kvstore_dist.py)
 across processes, on the CPU: one 4-rank gloo gang per module, launched
-as a user launches one (``tools/launch.py -n 4 python
+as a user launches one (``tools/torch_launch.py -n 4 python
 tests/torch_dist_worker.py``), killed whole if it outlives its timeout.
 
 The worker asserts the store's exact sums and its API in every rank
@@ -102,10 +102,11 @@ def _run_gang(argvs, timeout, env=None):
 
 @pytest.fixture(scope="module")
 def gang(tmp_path_factory):
-    """{rank: arrays} of the 4-rank gang run through tools/launch.py."""
+    """{rank: arrays} of the 4-rank gang run through tools/torch_launch.py
+    (rank 0 binds the coordinator's port and publishes it)."""
     out = str(tmp_path_factory.mktemp("gang"))
     [(rc, log)] = _run_gang([[
-        sys.executable, os.path.join(ROOT, "tools", "launch.py"), "-n",
+        sys.executable, os.path.join(ROOT, "tools", "torch_launch.py"), "-n",
         str(NPROC), sys.executable, WORKER, "--out", out]], GANG_TIMEOUT_S)
     assert rc == 0, log[-4000:]
     for r in range(NPROC):

@@ -3,10 +3,11 @@ KVStore (the port's counterpart of tests/dist_kvstore_worker.py). It
 imports torch and the port only.
 
     python tests/torch_dist_worker.py COORDINATOR NPROC RANK [--out DIR]
-    python tools/launch.py -n 4 python tests/torch_dist_worker.py [--out DIR]
+    python tools/torch_launch.py -n 4 python tests/torch_dist_worker.py \
+        [--out DIR]
 
 The first form joins the gang named on the command line; the second reads
-the rendezvous that tools/launch.py exports. Each rank runs on the CPU
+the rendezvous that tools/torch_launch.py exports (or tools/launch.py's). Each rank runs on the CPU
 over gloo unless ``--device cuda`` puts it on ``cuda:(rank % cards)``
 (with ``MXTPU_DIST_BACKEND=gloo`` two ranks can share one card). It
 asserts the store's exact sums and API (dense fp32 over rounds, fp16, a

@@ -5,7 +5,7 @@ only; the JAX oracles run in the tests that start it.
 
     python tests/torch_sharded_worker.py COORDINATOR NPROC RANK \
         --mode MODE --inputs FILE --out DIR
-    python tools/launch.py -n 4 python tests/torch_sharded_worker.py ...
+    python tools/torch_launch.py -n 4 python tests/torch_sharded_worker.py ...
 
 Each rank runs on the CPU over gloo unless ``--device cuda`` puts it on
 ``cuda:(rank % cards)`` (``MXTPU_DIST_BACKEND=gloo`` lets two ranks share
